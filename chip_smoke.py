@@ -1,0 +1,328 @@
+"""Smoke check of the PyTorch/CUDA port (pctpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout, on a machine with a CUDA card, nvcc and
+PyTorch built for CUDA (no JAX needed: nothing here imports jax or pctpu).
+Phases, each of which raises on failure (the exit code is then not 0):
+
+1. environment: Python, torch, CUDA, Triton and nvcc versions, the card, and
+   its name and power limit as nvidia-smi reports them;
+2. build: the CUDA kernels from ``pctpu_torch/csrc``, timed;
+3. each kernel against its plain torch twin on the card, on the same
+   inputs at the slice's shapes — the bbox-pruned 1-NN at the fine pass
+   (≈51k × 57,344 bucket, thr 1 m and none, and with masked points), the
+   coarse pass (8,192 flat points, thr 10 m) and past 262,144 targets; the
+   voxel segment sums at 65,536 points.  Zero index mismatches and
+   bit-equal results are required; CUDA-event times of both are printed;
+4. the voxel grid on the card twice and on the CPU: bit-identical;
+5. the slice: a keyframe tree of the 65,536-capacity registration scene and
+   moved copies with known yaw and translation goes through the
+   ``batch_top_part_registration`` CLI; every pair must succeed within 0.5°
+   and 0.10 m of the truth, and each kernel must have been launched.
+
+Prints one JSON line of per-kernel results, then the final line
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import importlib.metadata
+import io
+import json
+import math
+import os
+import re
+import shutil
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout
+    return out.strip().splitlines()[0]
+
+
+def registration_scene() -> tuple[np.ndarray, np.ndarray]:
+    """The registration bench scene (bench.py ``registration_scene``): 40
+    vertical clusters of 150 points + 45,000 ground points, 51,000 in all."""
+    rng = np.random.default_rng(0)
+    pts, labels = [], []
+    for _ in range(40):
+        cx, cy = rng.uniform(-60, 60, 2)
+        n = 150
+        pts.append(np.stack([cx + rng.normal(0, 2.5, n), cy + rng.normal(0, 2.5, n),
+                             rng.uniform(0, 9, n)], 1))
+        labels.append(np.full(n, -2))
+    ng = 45000
+    pts.append(np.stack([rng.uniform(-70, 70, ng), rng.uniform(-70, 70, ng),
+                         rng.uniform(-2.0, -1.9, ng)], 1))
+    labels.append(np.zeros(ng))
+    return np.concatenate(pts).astype(np.float32), np.concatenate(labels).astype(np.int32)
+
+
+def pose(yaw_deg: float, tx: float, ty: float) -> np.ndarray:
+    th = math.radians(yaw_deg)
+    m = np.eye(4)
+    m[:2, :2] = [[math.cos(th), -math.sin(th)], [math.sin(th), math.cos(th)]]
+    m[:2, 3] = tx, ty
+    return m
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean milliseconds per call, timed with CUDA events after a warm-up."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def compare(name: str, got, want) -> float:
+    """Require equal indices and bit-equal values; returns max |Δ| over the
+    finite values (0.0 when bit-equal)."""
+    mismatches = 0
+    max_err = 0.0
+    for a, b in zip(got, want):
+        if a.dtype == torch.float32:
+            diff = a.view(torch.int32) != b.view(torch.int32)
+            fin = torch.isfinite(a) & torch.isfinite(b)
+            if fin.any():
+                max_err = max(max_err, float((a[fin] - b[fin]).abs().max()))
+        else:
+            diff = a != b
+        mismatches += int(diff.sum())
+    print(f"  {name}: {mismatches} mismatches, max_abs_err {max_err}")
+    if mismatches:
+        raise AssertionError(f"{name}: kernel and twin disagree in {mismatches} entries")
+    return max_err
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from pctpu_torch import make_cloud  # the package import pins full-f32 matmuls
+    from pctpu_torch.cli import batch_top_part_registration as cli
+    from pctpu_torch.io.pcd import save_cloud_pcd
+    from pctpu_torch.ops import _cuda, cuda_knn, voxel
+    from pctpu_torch.pipelines import registration
+
+    dev = torch.device("cuda", 0)
+
+    # --- 1. environment ----------------------------------------------------
+    try:
+        triton_version = importlib.metadata.version("triton")
+    except importlib.metadata.PackageNotFoundError:
+        triton_version = "not installed"
+    nvcc = subprocess.run([_cuda._nvcc(), "--version"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip().splitlines()
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}, triton {triton_version}")
+    print(f"nvcc: {nvcc[-1]}")
+    print(f"device: {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
+    smi = nvidia_smi_line()
+    print(smi)
+
+    # --- 2. build ------------------------------------------------------------
+    t0 = time.perf_counter()
+    fresh = not _cuda.library_path().exists()
+    _cuda.library()
+    print(f"build: {time.perf_counter() - t0:.2f} s ({'compiled' if fresh else 'cached'} "
+          f"{os.path.relpath(_cuda.library_path(), ROOT)})")
+
+    # --- 3. kernels against their twins, on the card -------------------------
+    rng = np.random.default_rng(1)
+    xyz, lab = registration_scene()
+    truth = pose(17.0, 1.5, -2.0)
+    xyz2 = (xyz @ truth[:3, :3].T.astype(np.float32) + truth[:3, 3].astype(np.float32))
+    cap = 65536
+
+    def padded(a: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
+        x = torch.zeros((cap, 3), dtype=torch.float32, device=dev)
+        x[: len(a)] = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return x, torch.arange(cap, device=dev) < len(a)
+
+    src, src_m = padded(xyz)
+    tgt, tgt_m = padded(xyz2.astype(np.float32))
+    src_v, src_vm, n_src = voxel.voxel_downsample(src, src_m, 0.2)
+    tgt_v, tgt_vm, n_tgt = voxel.voxel_downsample(tgt, tgt_m, 0.2)
+    fbucket = registration._fine_bucket(int(max(n_src, n_tgt)), cap)
+    # the fine ICP's state a few iterations in: source moved near the truth
+    near = torch.from_numpy(pose(17.2, 1.53, -2.04)).float().to(dev)
+    q = src_v[:fbucket] @ near[:3, :3].T + near[:3, 3]
+    fine_q, fine_qm = cuda_knn.spatial_sort_payload(q, src_vm[:fbucket])
+    fine_t, fine_tm = cuda_knn.spatial_sort_payload(tgt_v[:fbucket], tgt_vm[:fbucket])
+    drop_q = torch.from_numpy(rng.random(fbucket) < 0.1).to(dev)
+    drop_t = torch.from_numpy(rng.random(fbucket) < 0.1).to(dev)
+    # the coarse pass: 8,192 flattened points of each cloud
+    pick = torch.from_numpy(rng.permutation(int(min(n_src, n_tgt)))[:8192]).to(dev)
+    flat_q = fine_q[pick] * torch.tensor([1.0, 1.0, 0.0], device=dev)
+    flat_t = fine_t[pick] * torch.tensor([1.0, 1.0, 0.0], device=dev)
+    ones = torch.ones(8192, dtype=torch.bool, device=dev)
+    flat_q, _ = cuda_knn.spatial_sort_payload(flat_q, ones)
+    flat_t, _ = cuda_knn.spatial_sort_payload(flat_t, ones)
+    # past 262,144 targets (the TPU's 2-D-grid regime)
+    big_q, big_qm = cuda_knn.spatial_sort_payload(
+        torch.from_numpy(rng.uniform(-100, 100, (20000, 3)).astype(np.float32)).to(dev),
+        torch.ones(20000, dtype=torch.bool, device=dev))
+    big_t, big_tm = cuda_knn.spatial_sort_payload(
+        torch.from_numpy(rng.uniform(-100, 100, (300000, 3)).astype(np.float32)).to(dev),
+        torch.from_numpy(rng.random(300000) > 0.05).to(dev))
+
+    nn_cases = [
+        ("fine thr 1 m", (fine_q, fine_qm, fine_t, fine_tm), 1.0),
+        ("fine fitness (no thr)", (fine_q, fine_qm, fine_t, fine_tm), None),
+        ("fine thr 1 m, 10% masked", (fine_q, fine_qm & ~drop_q, fine_t, fine_tm & ~drop_t), 1.0),
+        ("coarse 8192 thr 10 m", (flat_q, ones, flat_t, ones), 10.0),
+        (f"{big_t.shape[0]} targets, no thr", (big_q, big_qm, big_t, big_tm), None),
+        (f"{big_t.shape[0]} targets, thr 2 m", (big_q, big_qm, big_t, big_tm), 2.0),
+    ]
+    print("kernel vs twin (ms per pass, CUDA events; kernel = full wrapper):")
+    nn_err = 0.0
+    timings = {}
+    for name, args, md in nn_cases:
+        got = cuda_knn.nn_1_pruned(*args, max_distance=md)
+        want = cuda_knn.nn_1_pruned_reference(*args, max_distance=md)
+        torch.cuda.synchronize()
+        nn_err = max(nn_err, compare(name, got, want))
+        found = int(torch.isfinite(got[1]).sum())
+        k_ms = cuda_ms(lambda: cuda_knn.nn_1_pruned(*args, max_distance=md), reps=20)
+        r_ms = cuda_ms(lambda: cuda_knn.nn_1_pruned_reference(*args, max_distance=md),
+                       reps=3, warmup=1)
+        timings[name] = (k_ms, r_ms)
+        print(f"  {name}: Q={args[0].shape[0]} T={args[2].shape[0]} found={found} "
+              f"kernel {k_ms:.4f} ms, twin {r_ms:.4f} ms")
+
+    values, seg, _ = voxel.voxel_segments(src, src_m, 0.2)
+    seg_err = compare("segment sums (65,536 points)",
+                      [voxel.segment_sum_sorted(values, seg)],
+                      [voxel.segment_sum_sorted_reference(values, seg)])
+    seg_ms = cuda_ms(lambda: voxel.segment_sum_sorted(values, seg), reps=50)
+    seg_ref_ms = cuda_ms(lambda: voxel.segment_sum_sorted_reference(values, seg), reps=5)
+    print(f"  segment sums: kernel {seg_ms:.4f} ms, twin {seg_ref_ms:.4f} ms")
+
+    # --- 4. the voxel grid: deterministic on the card, equal to the CPU ------
+    runs = [voxel.voxel_downsample(src, src_m, 0.2) for _ in range(2)]
+    cpu = voxel.voxel_downsample(src.cpu(), src_m.cpu(), 0.2)
+    for k, out in enumerate((runs[1], tuple(t.to(dev) for t in cpu))):
+        if not all(torch.equal(a, b) for a, b in zip(runs[0], out)):
+            raise AssertionError(f"voxel grid: run {k + 1} differs from the first")
+    print(f"voxel grid: two card runs and the CPU run bit-identical "
+          f"({int(runs[0][2])} voxels)")
+
+    # --- 5. the slice through the CLI ----------------------------------------
+    tree = os.path.join(ROOT, "build", "chip_smoke_tree")
+    shutil.rmtree(tree, ignore_errors=True)
+    os.makedirs(os.path.join(tree, "clouds"))
+    poses = [pose(0.0, 0.0, 0.0), pose(17.0, 1.5, -2.0), pose(-25.0, -3.0, 1.0),
+             pose(178.0, 2.0, 2.5)]
+    for k, m in enumerate(poses):
+        moved = xyz @ m[:3, :3].T.astype(np.float32) + m[:3, 3].astype(np.float32)
+        moved = moved + rng.normal(0, 0.01, moved.shape).astype(np.float32)
+        save_cloud_pcd(os.path.join(tree, "clouds", f"{k:06d}.pcd"),
+                       make_cloud(moved, label=lab))
+    pairs = [(0, 1, 3.0), (1, 2, -2.0), (2, 0, 4.0), (0, 3, -3.0), (3, 1, 2.5)]
+
+    def relative(q_i: int, m_i: int) -> np.ndarray:
+        return poses[m_i] @ np.linalg.inv(poses[q_i])
+
+    def guess_deg(q_i: int, m_i: int, off: float) -> float:
+        r = relative(q_i, m_i)
+        return math.degrees(math.atan2(r[1, 0], r[0, 0])) + off
+
+    match = os.path.join(tree, "match_result.txt")
+    with open(match, "w") as f:
+        for q_i, m_i, off in pairs:
+            f.write(f"{q_i} {m_i} {guess_deg(q_i, m_i, off):.3f}\n")
+    warm = os.path.join(tree, "warmup.txt")
+    with open(warm, "w") as f:
+        f.write(f"0 1 {guess_deg(0, 1, 3.0):.3f}\n")
+
+    fine_transforms = []
+    real_register_pair = registration.register_pair
+
+    def recording_register_pair(*args, **kwargs):
+        best, fine = real_register_pair(*args, **kwargs)
+        fine_transforms.append(fine.transform)
+        return best, fine
+
+    registration.register_pair = recording_register_pair
+    argv = ["--capacity=65536", "--flat-cap=32768"]
+    try:
+        # warm-up pair: CUDA context, cuBLAS and cuSOLVER handles
+        cli.main([warm, os.path.join(tree, "clouds"),
+                  f"--report={os.path.join(tree, 'warmup_report.txt')}", *argv])
+        fine_transforms.clear()
+        report = os.path.join(tree, "icp_precision_report.txt")
+        captured = io.StringIO()
+        _cuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(captured):
+            rc = cli.main([match, os.path.join(tree, "clouds"), f"--report={report}", *argv])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_cuda.launch_counts)
+    finally:
+        registration.register_pair = real_register_pair
+    log = captured.getvalue()
+    print(log, end="")
+    if rc != 0:
+        raise AssertionError(f"CLI exited {rc}")
+    stage_ms = {k: float(v) for k, v in re.findall(
+        r"\[TIME\] Avg Tiempo for \S+ Stage \((\w+)\): ([0-9.eE+-]+)", log)}
+    lines = open(report).read().splitlines()
+    if len(lines) != len(pairs) or "count_failure: 0," not in log:
+        raise AssertionError(f"not every pair succeeded: {len(lines)} report lines")
+    for (q_i, m_i, _), tf in zip(pairs, fine_transforms):
+        r = relative(q_i, m_i)
+        yaw_err = abs((math.degrees(math.atan2(tf[1, 0], tf[0, 0])
+                                    - math.atan2(r[1, 0], r[0, 0])) + 180.0) % 360.0 - 180.0)
+        t_err = float(np.hypot(tf[0, 3] - r[0, 3], tf[1, 3] - r[1, 3]))
+        print(f"  pair {q_i}->{m_i}: yaw error {yaw_err:.6f} deg, translation error {t_err:.6f} m")
+        if not (np.all(np.isfinite(tf)) and yaw_err < 0.5 and t_err < 0.10):
+            raise AssertionError(f"pair {q_i}->{m_i} off the truth")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"kernel {name} was not launched by the CLI run")
+    print(f"slice: {len(pairs)} pairs in {wall:.3f} s = {len(pairs) / wall:.4f} pairs/s; "
+          f"[TIME] per pair coarse {stage_ms['coarse']:.3f} ms, fine {stage_ms['fine']:.3f} ms; "
+          f"launches {launches}; card {smi}")
+    shutil.rmtree(tree)
+
+    fine_ms = timings["fine thr 1 m"]
+    print(json.dumps({"kernels": [
+        {"name": "nn_pruned", "route": "cuda", "source": "pctpu_torch/csrc/nn_pruned.cu",
+         "replaces": "pctpu/ops/pallas_knn.py:275", "launches": launches["nn_pruned"],
+         "max_abs_err": nn_err, "ms": fine_ms[0], "plain_ms": fine_ms[1]},
+        {"name": "segment_sum4", "route": "cuda", "source": "pctpu_torch/csrc/segment_sum.cu",
+         "replaces": "pctpu/ops/voxel.py:80", "launches": launches["segment_sum4"],
+         "max_abs_err": seg_err, "ms": seg_ms, "plain_ms": seg_ref_ms},
+    ]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
