@@ -11,16 +11,32 @@ Phases, each of which raises on failure (the exit code is then not 0):
 2. build: the CUDA kernels from ``pctpu_torch/csrc``, timed;
 3. each kernel against its plain torch twin on the card, on the same
    inputs at the slice's shapes — the bbox-pruned 1-NN at the fine pass
-   (≈51k × 57,344 bucket, thr 1 m and none, and with masked points), the
-   coarse pass (8,192 flat points, thr 10 m) and past 262,144 targets; the
+   (49,152 × 49,152 bucket, thr 1 m and none, and with masked points), the
+   coarse pass (8,192 flat points, thr 10 m), the whole-cloud pass of
+   ``batch_whole_registration`` (65,536 uncut, sorted in each cloud's own
+   frame, the source moved by the yaw-only guess: thr 4 m and none; and
+   thr 4 m near the truth) and past 262,144 targets; the
    voxel segment sums at 65,536 points.  Zero index mismatches and
    bit-equal results are required; CUDA-event times of both are printed;
 4. the voxel grid on the card twice and on the CPU: bit-identical;
 5. the slice: a keyframe tree of the 65,536-capacity registration scene and
    moved copies with known yaw and translation goes through the
    ``batch_top_part_registration`` CLI; every pair must succeed within 0.5°
-   and 0.10 m of the truth, and each kernel must have been launched.
+   and 0.10 m of the truth, and each kernel must have been launched;
+6. the same tree and pairs through the ``batch_whole_registration`` CLI
+   (direct WHOLE_ICP from the yaw guess, the pruned 1-NN at thr 4 m): every
+   pair must succeed within 0.5° and 0.10 m; pairs/s and the ``[TIME]``
+   fine ms per pair are printed;
+7. the fused unpruned 1-NN (``cuda_knn.nn_1_fused``) at 65,536 × 65,536
+   (uniform ±70 m), 16,384² and on the unsorted fine-stage bucket, 5% of
+   queries and targets masked: 0 mismatches against its twin, and the
+   CUDA-event ms of the kernel, the twin and ``knn.nn_1``;
+8. the argmin and tile-shape experiment
+   (``pctpu_torch.experiments.nn_argmin --quick``): every mode and tile
+   shape bit-equal to its twin before it is timed.
 
+Each of paths 5-8 runs with the launch counts set to 0 just before it and
+read just after; a kernel of the path launched no time fails the run.
 Prints one JSON line of per-kernel results, then the final line
 ``{"ok": true, "device": {...}}``.
 """
@@ -45,32 +61,6 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout
-    return out.strip().splitlines()[0]
-
-
-def registration_scene() -> tuple[np.ndarray, np.ndarray]:
-    """The registration bench scene (bench.py ``registration_scene``): 40
-    vertical clusters of 150 points + 45,000 ground points, 51,000 in all."""
-    rng = np.random.default_rng(0)
-    pts, labels = [], []
-    for _ in range(40):
-        cx, cy = rng.uniform(-60, 60, 2)
-        n = 150
-        pts.append(np.stack([cx + rng.normal(0, 2.5, n), cy + rng.normal(0, 2.5, n),
-                             rng.uniform(0, 9, n)], 1))
-        labels.append(np.full(n, -2))
-    ng = 45000
-    pts.append(np.stack([rng.uniform(-70, 70, ng), rng.uniform(-70, 70, ng),
-                         rng.uniform(-2.0, -1.9, ng)], 1))
-    labels.append(np.zeros(ng))
-    return np.concatenate(pts).astype(np.float32), np.concatenate(labels).astype(np.int32)
-
-
 def pose(yaw_deg: float, tx: float, ty: float) -> np.ndarray:
     th = math.radians(yaw_deg)
     m = np.eye(4)
@@ -79,38 +69,53 @@ def pose(yaw_deg: float, tx: float, ty: float) -> np.ndarray:
     return m
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean milliseconds per call, timed with CUDA events after a warm-up."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+def pose_error(tf: np.ndarray, truth: np.ndarray) -> tuple[float, float]:
+    """(yaw error in degrees, xy translation error in metres)."""
+    yaw = math.degrees(math.atan2(tf[1, 0], tf[0, 0]) - math.atan2(truth[1, 0], truth[0, 0]))
+    return (abs((yaw + 180.0) % 360.0 - 180.0),
+            float(np.hypot(tf[0, 3] - truth[0, 3], tf[1, 3] - truth[1, 3])))
+
+
+def require_launched(counts: dict, names, path: str) -> None:
+    for name in names:
+        if counts.get(name, 0) == 0:
+            raise AssertionError(f"kernel {name} was not launched by {path}")
+
+
+def print_ptxas(path) -> None:
+    """One line per compiled kernel: registers, spills, shared memory."""
+    if not os.path.exists(path):
+        return
+    name = None
+    spill = ""
+    for line in open(path):
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            tpl = re.findall(r"ILi(\d+)ELi(\d+)ELi(\d+)E", name)
+            short = re.search(r"(nn_pruned_kernel|nn_fused_kernel|segment_sum4_kernel)", name)
+            name = (short.group(1) if short else name) + (
+                f"<{','.join(tpl[0])}>" if tpl else "")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            print(f"  ptxas {name}: {m.group(1)} registers, {m.group(2) or 0} B static smem, "
+                  f"{spill}")
+            name = None
 
 
 def compare(name: str, got, want) -> float:
     """Require equal indices and bit-equal values; returns max |Δ| over the
     finite values (0.0 when bit-equal)."""
-    mismatches = 0
-    max_err = 0.0
-    for a, b in zip(got, want):
-        if a.dtype == torch.float32:
-            diff = a.view(torch.int32) != b.view(torch.int32)
-            fin = torch.isfinite(a) & torch.isfinite(b)
-            if fin.any():
-                max_err = max(max_err, float((a[fin] - b[fin]).abs().max()))
-        else:
-            diff = a != b
-        mismatches += int(diff.sum())
-    print(f"  {name}: {mismatches} mismatches, max_abs_err {max_err}")
-    if mismatches:
-        raise AssertionError(f"{name}: kernel and twin disagree in {mismatches} entries")
+    from pctpu_torch.experiments.card import mismatches
+
+    n, max_err = mismatches(got, want)
+    print(f"  {name}: {n} mismatches, max_abs_err {max_err}")
+    if n:
+        raise AssertionError(f"{name}: kernel and twin disagree in {n} entries")
     return max_err
 
 
@@ -122,8 +127,13 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from pctpu_torch import make_cloud  # the package import pins full-f32 matmuls
     from pctpu_torch.cli import batch_top_part_registration as cli
+    from pctpu_torch.cli import batch_whole_registration as whole_cli
+    from pctpu_torch.experiments import nn_argmin
+    from pctpu_torch.experiments.card import cuda_ms, nvidia_smi_line
+    from pctpu_torch.experiments.scene import registration_scene
     from pctpu_torch.io.pcd import save_cloud_pcd
-    from pctpu_torch.ops import _cuda, cuda_knn, voxel
+    from pctpu_torch.ops import _cuda, cuda_knn, knn, voxel
+    from pctpu_torch.ops.transform import transform_xyz
     from pctpu_torch.pipelines import registration
 
     dev = torch.device("cuda", 0)
@@ -148,6 +158,7 @@ def main() -> int:
     _cuda.library()
     print(f"build: {time.perf_counter() - t0:.2f} s ({'compiled' if fresh else 'cached'} "
           f"{os.path.relpath(_cuda.library_path(), ROOT)})")
+    print_ptxas(_cuda.library_path().with_suffix(".ptxas.txt"))
 
     # --- 3. kernels against their twins, on the card -------------------------
     rng = np.random.default_rng(1)
@@ -187,12 +198,25 @@ def main() -> int:
     big_t, big_tm = cuda_knn.spatial_sort_payload(
         torch.from_numpy(rng.uniform(-100, 100, (300000, 3)).astype(np.float32)).to(dev),
         torch.from_numpy(rng.random(300000) > 0.05).to(dev))
+    # the batch_whole_registration pass (phase 6, pair 0->1): both voxel
+    # clouds uncut at 65,536, each sorted in its own frame, the source moved
+    # by the yaw-only guess (truth 17° plus the 3° offset, no translation)
+    # and, for the late iterations, near the truth
+    whole_s, whole_sm = cuda_knn.spatial_sort_payload(src_v, src_vm)
+    whole_t, whole_tm = cuda_knn.spatial_sort_payload(tgt_v, tgt_vm)
+    yaw_guess = torch.from_numpy(registration.yaw_rotation_4x4(
+        registration._guess_angle_rad(20.0)).astype(np.float32)).to(dev)
+    whole_guess = (transform_xyz(whole_s, yaw_guess), whole_sm, whole_t, whole_tm)
+    whole_near = (transform_xyz(whole_s, near), whole_sm, whole_t, whole_tm)
 
     nn_cases = [
         ("fine thr 1 m", (fine_q, fine_qm, fine_t, fine_tm), 1.0),
         ("fine fitness (no thr)", (fine_q, fine_qm, fine_t, fine_tm), None),
         ("fine thr 1 m, 10% masked", (fine_q, fine_qm & ~drop_q, fine_t, fine_tm & ~drop_t), 1.0),
         ("coarse 8192 thr 10 m", (flat_q, ones, flat_t, ones), 10.0),
+        ("whole thr 4 m, yaw guess", whole_guess, 4.0),
+        ("whole fitness (no thr), yaw guess", whole_guess, None),
+        ("whole thr 4 m, near the truth", whole_near, 4.0),
         (f"{big_t.shape[0]} targets, no thr", (big_q, big_qm, big_t, big_tm), None),
         (f"{big_t.shape[0]} targets, thr 2 m", (big_q, big_qm, big_t, big_tm), 2.0),
     ]
@@ -294,22 +318,119 @@ def main() -> int:
     if len(lines) != len(pairs) or "count_failure: 0," not in log:
         raise AssertionError(f"not every pair succeeded: {len(lines)} report lines")
     for (q_i, m_i, _), tf in zip(pairs, fine_transforms):
-        r = relative(q_i, m_i)
-        yaw_err = abs((math.degrees(math.atan2(tf[1, 0], tf[0, 0])
-                                    - math.atan2(r[1, 0], r[0, 0])) + 180.0) % 360.0 - 180.0)
-        t_err = float(np.hypot(tf[0, 3] - r[0, 3], tf[1, 3] - r[1, 3]))
+        yaw_err, t_err = pose_error(tf, relative(q_i, m_i))
         print(f"  pair {q_i}->{m_i}: yaw error {yaw_err:.6f} deg, translation error {t_err:.6f} m")
         if not (np.all(np.isfinite(tf)) and yaw_err < 0.5 and t_err < 0.10):
             raise AssertionError(f"pair {q_i}->{m_i} off the truth")
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"kernel {name} was not launched by the CLI run")
+    require_launched(launches, ("nn_pruned", "segment_sum4"), "the top-part CLI run")
     print(f"slice: {len(pairs)} pairs in {wall:.3f} s = {len(pairs) / wall:.4f} pairs/s; "
           f"[TIME] per pair coarse {stage_ms['coarse']:.3f} ms, fine {stage_ms['fine']:.3f} ms; "
           f"launches {launches}; card {smi}")
+
+    # --- 6. batch_whole_registration through its CLI, on the same tree -------
+    whole_transforms = []
+    real_icp = registration.icp_point_to_point
+
+    def recording_icp(*args, **kwargs):
+        res = real_icp(*args, **kwargs)
+        whole_transforms.append(res.transform.cpu().numpy())
+        return res
+
+    registration.icp_point_to_point = recording_icp
+    clouds = os.path.join(tree, "clouds")
+    try:
+        whole_cli.main([warm, clouds, "--capacity=65536",
+                        f"--report={os.path.join(tree, 'warmup_whole.txt')}"])
+        whole_transforms.clear()
+        whole_report = os.path.join(tree, "whole_report.txt")
+        captured = io.StringIO()
+        _cuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(captured):
+            rc = whole_cli.main([match, clouds, "--capacity=65536",
+                                 f"--report={whole_report}"])
+        torch.cuda.synchronize()
+        whole_wall = time.perf_counter() - t0
+        whole_launches = dict(_cuda.launch_counts)
+    finally:
+        registration.icp_point_to_point = real_icp
+    log = captured.getvalue()
+    print(log, end="")
+    if rc != 0:
+        raise AssertionError(f"batch_whole_registration CLI exited {rc}")
+    if f"count_success: {len(pairs)}, count_failure: 0," not in log:
+        raise AssertionError("batch_whole_registration: not every pair succeeded")
+    if open(whole_report).read() != "" or len(open(whole_report + ".progress").readlines()) != len(pairs):
+        raise AssertionError("batch_whole_registration: report or progress file wrong")
+    for (q_i, m_i, _), tf in zip(pairs, whole_transforms):
+        yaw_err, t_err = pose_error(tf, relative(q_i, m_i))
+        print(f"  whole pair {q_i}->{m_i}: yaw error {yaw_err:.6f} deg, "
+              f"translation error {t_err:.6f} m")
+        if not (np.all(np.isfinite(tf)) and yaw_err < 0.5 and t_err < 0.10):
+            raise AssertionError(f"whole pair {q_i}->{m_i} off the truth")
+    require_launched(whole_launches, ("nn_pruned", "segment_sum4"),
+                     "the batch_whole_registration CLI run")
+    whole_fine = float(re.search(r"\[TIME\] Avg Tiempo for 2nd Stage \(fine\): ([0-9.eE+-]+)",
+                                 log).group(1))
+    print(f"batch_whole_registration: {len(pairs)} pairs in {whole_wall:.3f} s = "
+          f"{len(pairs) / whole_wall:.4f} pairs/s; [TIME] fine {whole_fine:.3f} ms per pair; "
+          f"launches {whole_launches}; card {smi}")
     shutil.rmtree(tree)
 
+    # --- 7. the fused unpruned 1-NN (K3) -------------------------------------
+    def masked_pair(q, t):
+        qm = torch.from_numpy(rng.random(q.shape[0]) >= 0.05).to(dev)
+        tm = torch.from_numpy(rng.random(t.shape[0]) >= 0.05).to(dev)
+        return q.contiguous(), qm, t.contiguous(), tm
+
+    def uniform(n):
+        return torch.from_numpy(rng.uniform(-70, 70, (n, 3)).astype(np.float32)).to(dev)
+
+    fused_cases = [
+        ("65,536 x 65,536 uniform", masked_pair(uniform(65536), uniform(65536))),
+        ("16,384 x 16,384 uniform", masked_pair(uniform(16384), uniform(16384))),
+        (f"fine bucket {fbucket} unsorted",
+         masked_pair(src_v[:fbucket] @ near[:3, :3].T + near[:3, 3], tgt_v[:fbucket])),
+    ]
+    _cuda.reset_launch_counts()
+    fused_out = cuda_knn.nn_1_fused(*fused_cases[0][1])  # the path: one call, full width
+    torch.cuda.synchronize()
+    fused_launches = _cuda.launch_counts["nn_fused"]
+    require_launched({"nn_fused": fused_launches}, ("nn_fused",), "the nn_1_fused call")
+    print("fused 1-NN (K3) vs twin vs knn.nn_1 (ms per pass, CUDA events):")
+    fused_err = 0.0
+    fused_ms = {}
+    for k, (name, args) in enumerate(fused_cases):
+        got = fused_out if k == 0 else cuda_knn.nn_1_fused(*args)
+        fused_err = max(fused_err, compare(name, got, cuda_knn.nn_1_fused_reference(*args)))
+        xla = knn.nn_1(*args)
+        agree = float((xla[0] == got[0]).float().mean())
+        k_ms = cuda_ms(lambda: cuda_knn.nn_1_fused(*args), reps=10)
+        r_ms = cuda_ms(lambda: cuda_knn.nn_1_fused_reference(*args), reps=2, warmup=1)
+        x_ms = cuda_ms(lambda: knn.nn_1(*args), reps=5)
+        fused_ms[name] = (k_ms, r_ms, x_ms)
+        print(f"  {name}: kernel {k_ms:.4f} ms, twin {r_ms:.4f} ms, knn.nn_1 {x_ms:.4f} ms "
+              f"(knn.nn_1 picks the same index for {agree:.6f} of queries); card {smi}")
+
+    # --- 8. the argmin and tile-shape experiment (K4) ------------------------
+    _cuda.reset_launch_counts()
+    exp = nn_argmin.run(["--quick"])
+    torch.cuda.synchronize()
+    variant_launches = _cuda.launch_counts["nn_variant"]
+    require_launched({"nn_variant": variant_launches}, ("nn_variant",), "nn_argmin --quick")
+    shapes = {(v["mode"], v["tq"], v["tt"]) for v in exp["variants"]}
+    missing = {(m, 256, 1024) for m in nn_argmin.ALL_MODES} | {
+        ("prod", tq, tt) for tq, tt in cuda_knn.VARIANT_TILES}
+    if missing - shapes:
+        raise AssertionError(f"nn_argmin skipped {sorted(missing - shapes)}")
+    anchor = next(v for v in exp["variants"] if v["key"] == "prod_thr")
+    print(f"nn_argmin: {len(exp['variants'])} variants, each bit-equal to its twin; "
+          f"prod thr=1m (256,1024) {anchor['ms_per_pass']:.4f} ms per pass "
+          f"(kernel {anchor['kernel_ms']:.4f} ms), twin {exp['twin_ms']:.4f} ms")
+
     fine_ms = timings["fine thr 1 m"]
+    big_fused = fused_ms[fused_cases[0][0]]
     print(json.dumps({"kernels": [
         {"name": "nn_pruned", "route": "cuda", "source": "pctpu_torch/csrc/nn_pruned.cu",
          "replaces": "pctpu/ops/pallas_knn.py:275", "launches": launches["nn_pruned"],
@@ -317,6 +438,13 @@ def main() -> int:
         {"name": "segment_sum4", "route": "cuda", "source": "pctpu_torch/csrc/segment_sum.cu",
          "replaces": "pctpu/ops/voxel.py:80", "launches": launches["segment_sum4"],
          "max_abs_err": seg_err, "ms": seg_ms, "plain_ms": seg_ref_ms},
+        {"name": "nn_fused", "route": "cuda", "source": "pctpu_torch/csrc/nn_fused.cu",
+         "replaces": "pctpu/ops/pallas_knn.py:38", "launches": fused_launches,
+         "max_abs_err": fused_err, "ms": big_fused[0], "plain_ms": big_fused[1]},
+        {"name": "nn_variant", "route": "cuda", "source": "pctpu_torch/csrc/nn_pruned.cu",
+         "replaces": "scripts/exp_nn_argmin.py:118", "launches": variant_launches,
+         "max_abs_err": exp["max_abs_err"], "ms": anchor["ms_per_pass"],
+         "plain_ms": exp["twin_ms"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

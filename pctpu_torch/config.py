@@ -1,6 +1,7 @@
-"""Typed configuration of the registration slice, copied from
+"""Typed configuration of the registration tools, copied from
 ``pctpu/config.py`` (the same frozen dataclasses and reference defaults:
-reference/BatchTopPartRegistration.cpp:90-147, 199-239)."""
+reference/BatchTopPartRegistration.cpp:90-147, 199-239,
+reference/BatchWholeRegistration.cpp:311-418)."""
 
 from __future__ import annotations
 
@@ -49,6 +50,13 @@ FINE_ICP = IcpConfig(
     max_iterations=100,
     transformation_epsilon=1e-6,
     euclidean_fitness_epsilon=0.01,
+)
+# batch_whole_registration's direct 3-D ICP (pctpu/config.py:214-219)
+WHOLE_ICP = IcpConfig(
+    max_correspondence_distance=4.0,
+    max_iterations=200,
+    transformation_epsilon=1e-6,
+    euclidean_fitness_epsilon=0.001,
 )
 
 

@@ -1,8 +1,9 @@
 """Build, load and count the hand-written CUDA kernels (``pctpu_torch/csrc``).
 
-The kernels are compiled at first use by ``nvcc`` into one shared library
-with a plain C interface and loaded with ``ctypes`` — no PyTorch headers, so
-a build takes seconds.  The library lands in ``build/pctpu_torch/`` of the
+The kernels are compiled at first use by ``nvcc``, one process per source
+started together, and linked into one shared library with a plain C
+interface, loaded with ``ctypes`` — no PyTorch headers, so a build takes
+seconds.  The library lands in ``build/pctpu_torch/`` of the
 checkout under a name carrying a hash of the sources and flags, so it is
 rebuilt only when they change.  Nothing here runs at import: a CPU-only
 machine never calls ``nvcc``.
@@ -24,14 +25,27 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "nn_pruned.cu", _PKG / "csrc" / "segment_sum.cu")
+SOURCES = tuple(_PKG / "csrc" / f for f in ("nn_pruned.cu", "segment_sum.cu", "nn_fused.cu"))
 BUILD_DIR = _PKG.parent / "build" / "pctpu_torch"
+
+# the (TQ, TT, MODE) instances of csrc/nn_pruned.cu's kernel template that
+# pctpu_nn_variant serves (MODE: 0 prod, 1 explicit2, 2 64-bit key, 3 bf16):
+# every tile shape in prod, and each other argmin body at (256, 1024).  The
+# build instantiates exactly these (the NN_INSTANCES macro of a generated
+# header), so this is the only list.
+NN_INSTANCES = (
+    (128, 1024, 0), (256, 1024, 0), (256, 2048, 0), (256, 4096, 0), (512, 1024, 0),
+    (512, 2048, 0), (1024, 1024, 0), (1024, 2048, 0), (512, 4096, 0),
+    (256, 1024, 1), (256, 1024, 2), (256, 1024, 3),
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-launch_counts: dict[str, int] = {"nn_pruned": 0, "segment_sum4": 0}
+launch_counts: dict[str, int] = {
+    "nn_pruned": 0, "segment_sum4": 0, "nn_fused": 0, "nn_variant": 0,
+}
 
 _lib: ctypes.CDLL | None = None
 
@@ -53,26 +67,51 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
+def _instances_header() -> str:
+    # a header, not -D: nvcc splits a -D value at its commas
+    entries = " ".join(f"X({tq}, {tt}, {mode})" for tq, tt, mode in NN_INSTANCES)
+    return f"#define NN_INSTANCES {entries}\n"
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(_instances_header().encode())
     for src in SOURCES:
         h.update(src.read_bytes())
     return BUILD_DIR / f"libpctpu_torch_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands at once; raise on the first that fails.  Returns
+    their joined output (ptxas's register and spill report)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, o in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(c)}\n{o}")
+    return "".join(outs)
+
+
 def build() -> Path:
-    """Compile the kernels unless a library for the current sources exists."""
+    """Compile the kernels unless a library for the current sources exists:
+    one nvcc per source, all started together, then one link.  ptxas's
+    report lands beside the library as ``<library>.ptxas.txt``."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}{res.stderr}"
-        )
+    tag = f"tmp{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in SOURCES]
+    header = BUILD_DIR / f"nn_instances.{tag}.h"
+    header.write_text(_instances_header())
+    report = _run_all([[_nvcc(), *NVCC_FLAGS, "-include", str(header), "-c", "-o", str(o),
+                        str(src)] for o, src in zip(objs, SOURCES)])
+    tmp = out.with_suffix(f".{tag}.so")
+    _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+    for o in (*objs, header):
+        o.unlink()
+    out.with_suffix(".ptxas.txt").write_text(report)
     os.replace(tmp, out)
     return out
 
@@ -87,6 +126,13 @@ def library() -> ctypes.CDLL:
             p, p, i64, p, p, i64, p, i64, p, i64, ctypes.c_float, p, p, p,
         ]
         lib.pctpu_nn_pruned.restype = ctypes.c_int
+        lib.pctpu_nn_variant.argtypes = [
+            p, p, i64, p, p, i64, p, i64, p, i64, ctypes.c_int, ctypes.c_float,
+            p, p, p,
+        ]
+        lib.pctpu_nn_variant.restype = ctypes.c_int
+        lib.pctpu_nn_fused.argtypes = [p, i64, p, p, i64, p, p, p]
+        lib.pctpu_nn_fused.restype = ctypes.c_int
         lib.pctpu_segment_sum4.argtypes = [p, p, i64, p, p]
         lib.pctpu_segment_sum4.restype = ctypes.c_int
         _lib = lib

@@ -1,15 +1,20 @@
-"""Two-stage top-part registration pipeline — the sequential path of
+"""The registration pipelines — the sequential paths of
 ``pctpu/pipelines/registration.py``.
 
-Reference: batch_top_part_registration
-(reference/BatchTopPartRegistration.cpp:311-541).  Per pair:
+batch_top_part_registration
+(reference/BatchTopPartRegistration.cpp:311-541), per pair:
 top-part extraction + 0.2 m voxel of both clouds, 2-D normals of the target,
 point-to-plane ICP from the two yaw guesses {θ, θ+180°} (best fitness wins),
 then a 0.2 m voxel of the full clouds and a point-to-point fine ICP seeded
 with the coarse winner; the precision report carries the coarse-vs-fine
 Δxy/Δyaw with the reference's f32 arithmetic.
 
-Stage inputs are cut to capacity buckets (a power of two for the flat
+batch_whole_registration (reference/BatchWholeRegistration.cpp:311-418), the
+ablation: a 0.2 m voxel of both full clouds and one point-to-point ICP
+(``WHOLE_ICP``: 4 m, up to 200 iterations) from the yaw guess; only the
+success and failure counts are reported.
+
+The top-part stage inputs are cut to capacity buckets (a power of two for the flat
 clouds, a multiple of 8,192 for the full ones), as pctpu does: results
 depend on the padded width through f32 reduction shapes (D5), so the port
 pads the same way.
@@ -26,7 +31,7 @@ import numpy as np
 import torch
 
 from pctpu_torch.cloud import Cloud
-from pctpu_torch.config import RegistrationConfig
+from pctpu_torch.config import WHOLE_ICP, RegistrationConfig
 from pctpu_torch.geom.se3 import eigen_inverse3_f32, matmul3_f32, yaw_rotation_4x4
 from pctpu_torch.io.pcd import load_cloud_pcd, read_pcd_point_count
 from pctpu_torch.io.poses import _ostream_float  # C++ ostream<<float emulation
@@ -372,3 +377,69 @@ def run_batch_top_part_registration(
         f"count_success: {count_success}, count_failure: {count_failure}, SR: {sr}. "
     )
     return reports
+
+
+def run_batch_whole_registration(
+    match_results_filename: str,
+    point_cloud_dir: str,
+    cfg: RegistrationConfig | None = None,
+    report_path: str = "./icp_precision_report_3d_icp_directly.txt",
+    capacity: int | None = None,
+    resume: bool = False,
+    device: torch.device | str = "cpu",
+) -> tuple[int, int]:
+    """The ablation driver, one pair after another on ``device``: direct
+    3-D ICP from the yaw guess on the whole downsampled clouds, at the full
+    cloud capacity (no bucket cut, as in pctpu).  The report file is created
+    but — like the reference — never written to; only the success/failure
+    counts are printed.  Returns (success, failure).
+
+    ``resume=True`` skips pairs recorded in the ``<report_path>.progress``
+    sidecar (the contract of :func:`run_batch_top_part_registration`); the
+    returned and printed counts cover only this invocation's pairs."""
+    if cfg is None:
+        cfg = RegistrationConfig(fine=WHOLE_ICP)
+    matches = load_match_results(match_results_filename)
+    if capacity is None:
+        capacity = _auto_capacity(matches, point_cloud_dir)
+        log.info(f"capacity auto-derived from headers: {capacity}")
+    matches, report_mode = _filter_resumed(matches, report_path, resume)
+    timer = StageTimer()
+    count_success = 0
+    count_failure = 0
+    if report_mode == "w":
+        open(report_path, "w").close()
+
+    def load(idx: int) -> Cloud:
+        path = os.path.join(point_cloud_dir, f"{idx:06d}.pcd")
+        return load_cloud_pcd(path, capacity, device=device)
+
+    with open(report_path + ".progress", report_mode) as progress:
+        for m in matches:
+            c1, c2 = load(m.query_idx), load(m.match_idx)
+            with timer.stage("fine"):
+                guess = torch.from_numpy(
+                    yaw_rotation_4x4(_guess_angle_rad(m.angle_guess)).astype(np.float32)
+                ).to(c1.device)
+                a, b = _stage_voxel_full(c1, c2, cfg.voxel_leaf)
+                fine = icp_point_to_point(a[0], a[1], b[0], b[1], guess, cfg.fine).numpy()
+            log.green(f"Processing match: {m.query_idx} and {m.match_idx}")
+            fit = float(fine.fitness)
+            log.info(f"is icp converged: {bool(fine.converged)}, fitness score: {fit}")
+            if fit > cfg.failure_fitness:
+                log.red("3D ICP Failed. ")
+                count_failure += 1
+            else:
+                log.green("3D ICP Passed. ")
+                count_success += 1
+            progress.write(f"{m.query_idx} {m.match_idx}\n")
+            progress.flush()
+
+    n = max(len(matches), 1)
+    log.green(f"[TIME] Avg Tiempo for 2nd Stage (fine): {timer.totals_ms['fine'] / n}")
+    total = count_success + count_failure
+    sr = count_success / total if total else float("nan")
+    log.info(
+        f"count_success: {count_success}, count_failure: {count_failure}, SR: {sr}. "
+    )
+    return count_success, count_failure
