@@ -33,9 +33,19 @@ Phases, each of which raises on failure (the exit code is then not 0):
    CUDA-event ms of the kernel, the twin and ``knn.nn_1``;
 8. the argmin and tile-shape experiment
    (``pctpu_torch.experiments.nn_argmin --quick``): every mode and tile
-   shape bit-equal to its twin before it is timed.
+   shape bit-equal to its twin before it is timed;
+9. ``batch_multi_bev_gen`` on a ray-cast HDL-64E drive (64 grid-ordered
+   clouds, two raw clouds with duplicate cells, one over the grid's
+   capacity; ``pctpu_torch.experiments.scene``): the BEV raster and the
+   in-order ground sums bit-equal to their twins at B = 8; the CLI in both
+   compat modes after a warm-up, printing clouds/s, its ``[TIME]`` lines,
+   launches per batch, the writer and the largest ground sector; the
+   tolerance tree byte-identical to the bit-exact tree, the card's tree to
+   the port's CPU run on 4 clouds, and labels, ``.bin`` and single BEV to
+   ``native/ref_oracle.cpp`` (any difference must be a D2 slope knife
+   edge).
 
-Each of paths 5-8 runs with the launch counts set to 0 just before it and
+Each of paths 5-9 runs with the launch counts set to 0 just before it and
 read just after; a kernel of the path launched no time fails the run.
 Prints one JSON line of per-kernel results, then the final line
 ``{"ok": true, "device": {...}}``.
@@ -93,7 +103,8 @@ def print_ptxas(path) -> None:
         if m:
             name = m.group(1)
             tpl = re.findall(r"ILi(\d+)ELi(\d+)ELi(\d+)E", name)
-            short = re.search(r"(nn_pruned_kernel|nn_fused_kernel|segment_sum4_kernel)", name)
+            short = re.search(r"(nn_pruned_kernel|nn_fused_kernel|segment_sum4_kernel"
+                              r"|bev_raster_kernel|bev_expand_kernel)", name)
             name = (short.group(1) if short else name) + (
                 f"<{','.join(tpl[0])}>" if tpl else "")
             continue
@@ -117,6 +128,219 @@ def compare(name: str, got, want) -> float:
     if n:
         raise AssertionError(f"{name}: kernel and twin disagree in {n} entries")
     return max_err
+
+
+BEV_OUTPUTS = ("non_ground_point_cloud", "output_multi_bev", "output_single_bev",
+               "keyframe_label.csv")
+
+
+def tree_files(root: str) -> dict[str, bytes]:
+    """Every output file of a batch_multi_bev_gen tree, by relative path."""
+    files = {}
+    for sub in BEV_OUTPUTS:
+        top = os.path.join(root, sub)
+        walk = [(root, [], [sub])] if os.path.isfile(top) else os.walk(top)
+        for dirpath, _, names in walk:
+            for n in names:
+                path = os.path.join(dirpath, n)
+                with open(path, "rb") as f:
+                    files[os.path.relpath(path, root)] = f.read()
+    return files
+
+
+def device_ops_per_call(fn) -> str:
+    """Kernels and copies one call puts on the card, counted by
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = sum(1 for n in names if n.startswith(("Memcpy", "Memset")))
+    return f"{len(names) - copies} kernels + {copies} copies/memsets"
+
+
+def multi_bev_phase(dev: torch.device, smi: str, n_ordered: int = 64) -> list[dict]:
+    """Phase 9 (module docstring).  Returns the ``kernels`` entries of the
+    BEV raster and the ground sums."""
+    from pctpu_torch.cli import batch_multi_bev_gen as bev_cli
+    from pctpu_torch.config import GroundConfig, get_sensor_params
+    from pctpu_torch.experiments import oracle
+    from pctpu_torch.experiments.card import cuda_ms
+    from pctpu_torch.experiments.scene import multi_bev_tree
+    from pctpu_torch.io.pcd import read_pcd
+    from pctpu_torch.io.png import read_gray_png
+    from pctpu_torch.ops import _cuda, bev, ground, voxel
+    from pctpu_torch.ops.preprocess import _reorder_preordered, preprocess_batch
+    from pctpu_torch.pipelines import multi_bev
+    from pctpu_torch.runtime import native_io
+    from pctpu_torch.runtime.loader import load_xyzirct_arrays, stack_batch
+
+    params = get_sensor_params("HDL_64E")
+    base = os.path.join(ROOT, "build", "chip_smoke_bev")
+    shutil.rmtree(base, ignore_errors=True)
+    src = os.path.join(base, "tree")
+    t0 = time.perf_counter()
+    paths = multi_bev_tree(src, params, n_ordered=n_ordered, n_raw=2, n_over=1)
+    print(f"multi-BEV tree: {len(paths)} HDL-64E clouds ({n_ordered} grid-ordered, 2 raw, "
+          f"1 over capacity) generated in {time.perf_counter() - t0:.1f} s")
+
+    # --- 9a. the kernels against their twins, B = 8 real clouds -----------
+    arrays = stack_batch([load_xyzirct_arrays(p, params)
+                          for p in paths[:8]])
+    clouds = multi_bev._to_device(arrays, dev)
+    ordered = _reorder_preordered(clouds, params)
+    cfg = GroundConfig()
+    labeled, gm = ground.mark_ground(ordered, params)
+    lo0 = (params.n_scan - params.ground_upper_scan - 1) * params.horizon_scan
+    band = ordered.xyz[:, lo0:]
+    srow, scol = ground._belonging_grid(band[..., 0], band[..., 1], cfg)
+    values, seg = ground.sector_sums_rows(srow * cfg.grid_cols + scol, band[..., 2].contiguous(),
+                                          gm.reshape(8, -1)[:, lo0:] == 1, cfg)
+    largest = int(torch.unique_consecutive(seg[seg >= 0], return_counts=True)[1].max()) - 1
+    sums_err = compare("ground sums (B = 8)",
+                       [voxel.segment_sum_sorted(values, seg, count_as="ground_sums")],
+                       [voxel.segment_sum_sorted_reference(values, seg)])
+    sums_ms = cuda_ms(lambda: voxel.segment_sum_sorted(values, seg, count_as="ground_sums"),
+                      reps=20)
+    sums_ref_ms = cuda_ms(lambda: voxel.segment_sum_sorted_reference(values, seg), reps=2,
+                          warmup=1)
+    bev_err = compare("bev_raster (B = 8)", bev.fused_multi_single_bev(labeled, params.height_res),
+                      bev.fused_multi_single_bev_reference(labeled, params.height_res))
+    bev_ms = cuda_ms(lambda: bev.fused_multi_single_bev(labeled, params.height_res), reps=20)
+    bev_ref_ms = cuda_ms(lambda: bev.fused_multi_single_bev_reference(labeled, params.height_res),
+                         reps=5)
+    print(f"  ground sums: kernel {sums_ms:.4f} ms, twin {sums_ref_ms:.4f} ms "
+          f"({values.shape[0]} rows, largest sector {largest} points); card {smi}")
+    print(f"  bev_raster: kernel {bev_ms:.4f} ms, twin {bev_ref_ms:.4f} ms; card {smi}")
+    for compat in ("bitexact", "tolerance"):
+        def step(compat=compat):
+            return preprocess_batch(clouds, params, assume_ordered=True, compat=compat)
+        dev_ms = cuda_ms(step, reps=10)
+        _, multi, single = step()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(5):
+            multi.cpu()
+        d2h_ms = (time.perf_counter() - t1) * 1e3 / 5
+        print(f"  preprocess_batch B = 8 ({compat}): {dev_ms:.4f} ms (CUDA events), "
+              f"{device_ops_per_call(step)} per batch; multi BEV to the host "
+              f"({multi.numel() / 1e6:.2f} MB) {d2h_ms:.4f} ms; card {smi}")
+
+    # --- 9b. the CLI in both modes, after a warm-up -----------------------
+    warm = os.path.join(base, "warm")
+    os.makedirs(os.path.join(warm, "keyframe_point_cloud"))
+    for p in paths[:8] + [paths[n_ordered]]:
+        shutil.copy(p, os.path.join(warm, "keyframe_point_cloud"))
+    shutil.copy(os.path.join(src, "keyframe_pose.csv"), warm)
+    for compat in ("bitexact", "tolerance"):
+        with contextlib.redirect_stdout(io.StringIO()):
+            bev_cli.main([warm, "HDL_64E", f"--compat={compat}"])
+    trees = {}
+    for compat in ("bitexact", "tolerance"):
+        captured = io.StringIO()
+        _cuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(captured):
+            rc = bev_cli.main([src, "HDL_64E", f"--compat={compat}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_cuda.launch_counts)
+        log = captured.getvalue()
+        if rc != 0:
+            raise AssertionError(f"batch_multi_bev_gen --compat={compat} exited {rc}")
+        require_launched(launches, ("bev_raster", "ground_sums") if compat == "bitexact"
+                         else ("bev_raster",), f"batch_multi_bev_gen --compat={compat}")
+        if compat == "bitexact":
+            bev_launches, sums_launches = launches["bev_raster"], launches["ground_sums"]
+        for line in log.splitlines():
+            if line.startswith("[TIME]"):
+                print(f"  {line}; card {smi}")
+            elif line.startswith(("device:", "BEV writer:", "One-hot")):
+                print(f"  {line}")
+        n_batches = -(-len(paths) // 8)
+        print(f"batch_multi_bev_gen --compat={compat}: {len(paths)} clouds in {wall:.3f} s = "
+              f"{len(paths) / wall:.4f} clouds/s; hand-kernel launches {launches} "
+              f"({n_batches} batches); card {smi}")
+        trees[compat] = os.path.join(base, compat)
+        os.makedirs(trees[compat])
+        for sub in BEV_OUTPUTS:
+            os.rename(os.path.join(src, sub), os.path.join(trees[compat], sub))
+
+    exact = tree_files(trees["bitexact"])
+    tol = tree_files(trees["tolerance"])
+    if len(exact) != len(paths) * 28 + 1:
+        raise AssertionError(f"bit-exact tree holds {len(exact)} files")
+    differ = sorted(k for k in exact if exact[k] != tol.get(k)) + sorted(set(tol) - set(exact))
+    if differ:
+        raise AssertionError(f"tolerance tree differs from the bit-exact tree in {differ[:5]}")
+    print(f"tolerance tree byte-identical to the bit-exact tree ({len(exact)} files)")
+
+    # --- 9c. the card's tree against the port's CPU run on 4 clouds -------
+    sub = os.path.join(base, "cpu")
+    os.makedirs(os.path.join(sub, "keyframe_point_cloud"))
+    picked = [paths[0], paths[1], paths[n_ordered], paths[-1]]
+    for p in picked:
+        shutil.copy(p, os.path.join(sub, "keyframe_point_cloud"))
+    shutil.copy(os.path.join(src, "keyframe_pose.csv"), sub)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        multi_bev.run_multi_bev(sub, "HDL_64E", batch_size=4, device="cpu")
+    cpu = tree_files(sub)
+    differ = sorted(k for k in cpu if cpu[k] != exact.get(k))
+    if differ or len(cpu) != len(picked) * 28 + 1:
+        raise AssertionError(f"CPU run differs from the card's tree in {differ[:5]}")
+    print(f"card tree byte-identical to the CPU run on {len(picked)} clouds ({len(cpu)} files, "
+          f"CPU {time.perf_counter() - t0:.1f} s)")
+
+    # --- 9d. against the native oracle (the C++'s f64 slope) ---------------
+    lib = oracle.load()
+    totals = {"labels": 0, "bin": 0, "single": 0, "csv": 0, "d2_cells": 0}
+    from pctpu_torch.io.csvfmt import format_csv_bytes
+
+    for p in paths:
+        short = os.path.basename(p)[:-4]
+        data, _ = read_pcd(p)
+        labels, multi, single = oracle.preprocess(lib, data, params)
+        out, _ = read_pcd(os.path.join(trees["bitexact"], "non_ground_point_cloud", short + ".pcd"))
+        with open(os.path.join(trees["bitexact"], "output_multi_bev", "binary", short + ".bin"),
+                  "rb") as f:
+            bin_bytes = np.frombuffer(f.read(), np.uint8)
+        card_single = read_gray_png(os.path.join(trees["bitexact"], "output_single_bev", "image",
+                                                 short + ".png"))
+        with open(os.path.join(trees["bitexact"], "output_single_bev", "csv", short + ".csv"),
+                  "rb") as f:
+            csv_same = f.read() == format_csv_bytes(single)
+        diffs = {"labels": int((out["label"].astype(np.int32) != labels).sum()),
+                 "bin": int((bin_bytes != multi.ravel()).sum()),
+                 "single": int((card_single != single).sum()), "csv": int(not csv_same)}
+        if any(diffs.values()):
+            xyz = torch.from_numpy(np.stack([out["x"], out["y"], out["z"]], 1)).to(dev)
+            n_d2, n_far = oracle.slope_disagreements(
+                xyz, torch.from_numpy(out["intensity"]).to(dev), params)
+            print(f"  {short}: differs from the oracle {diffs}; slope decisions differing "
+                  f"{n_d2}, outside D2's 1e-5° window {n_far}")
+            if n_d2 == 0 or n_far:
+                raise AssertionError(f"{short}: difference from the oracle not explained by D2")
+            totals["d2_cells"] += n_d2
+        for k, v in diffs.items():
+            totals[k] += v
+    print(f"native oracle, {len(paths)} clouds: differing labels {totals['labels']}, .bin bytes "
+          f"{totals['bin']}, single-BEV pixels {totals['single']}, CSV files {totals['csv']} "
+          f"(D2 slope knife-edge cells {totals['d2_cells']})")
+    print(f"BEV writer: {native_io.writer_name()}; largest ground sector {largest} points; "
+          f"card {smi}")
+    shutil.rmtree(base)
+    return [
+        {"name": "bev_raster", "route": "cuda", "source": "pctpu_torch/csrc/bev_raster.cu",
+         "replaces": "pctpu/ops/bev.py:95", "launches": bev_launches,
+         "max_abs_err": bev_err, "ms": bev_ms, "plain_ms": bev_ref_ms},
+        {"name": "ground_sums", "route": "cuda", "source": "pctpu_torch/csrc/segment_sum.cu",
+         "replaces": "pctpu/ops/ground.py:113", "launches": sums_launches,
+         "max_abs_err": sums_err, "ms": sums_ms, "plain_ms": sums_ref_ms},
+    ]
 
 
 def main() -> int:
@@ -429,6 +653,9 @@ def main() -> int:
           f"prod thr=1m (256,1024) {anchor['ms_per_pass']:.4f} ms per pass "
           f"(kernel {anchor['kernel_ms']:.4f} ms), twin {exp['twin_ms']:.4f} ms")
 
+    # --- 9. batch_multi_bev_gen ----------------------------------------------
+    bev_kernels = multi_bev_phase(dev, smi)
+
     fine_ms = timings["fine thr 1 m"]
     big_fused = fused_ms[fused_cases[0][0]]
     print(json.dumps({"kernels": [
@@ -445,6 +672,7 @@ def main() -> int:
          "replaces": "scripts/exp_nn_argmin.py:118", "launches": variant_launches,
          "max_abs_err": exp["max_abs_err"], "ms": anchor["ms_per_pass"],
          "plain_ms": exp["twin_ms"]},
+        *bev_kernels,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

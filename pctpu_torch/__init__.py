@@ -7,11 +7,12 @@ imports neither ``pctpu`` nor ``jax``: the pure-numpy host code it needs
 
 Layers:
   pctpu_torch.cloud / .config   data model + typed configuration
-  pctpu_torch.geom              host-side SE(3) report arithmetic
-  pctpu_torch.io                PCD reader/writer, C++ float printing
+  pctpu_torch.geom              host-side SE(3) arithmetic (reports, poses)
+  pctpu_torch.io                PCD, PNG, CSV and pose files
   pctpu_torch.ops               torch ops + the hand-written CUDA kernels
-  pctpu_torch.pipelines         the sequential registration pipeline
-  pctpu_torch.runtime           stage timing ([TIME] reports)
+  pctpu_torch.pipelines         batch_multi_bev_gen and the sequential
+                                registration pipelines
+  pctpu_torch.runtime           loader, writers, stage timing ([TIME])
   pctpu_torch.cli               reference-compatible entry points
 
 Full-f32 rule: reduced-precision products flip nearest-neighbour winners and

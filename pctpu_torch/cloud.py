@@ -4,7 +4,8 @@ The port of ``pctpu/cloud.py``: the same fields, a fixed point capacity, and
 ``count`` leading real points.  Differences: ``t`` (uint32 on disk and in
 pctpu) is carried as int64 because torch's uint32 support is thin — it is
 bit-cast only at I/O — and ``count`` is a Python int, so building a valid
-mask needs no device round trip.
+mask needs no device round trip.  A batch of clouds carries a leading batch
+axis on every field and a ``(B,)`` int tensor as ``count``.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ class Cloud:
       col:       (N,)   int32 azimuth bin index.
       t:         (N,)   int64 per-point time (uint32 on disk).
       label:     (N,)   int32 segmentation label.
-      count:     number of real points (leading slots).
+      count:     number of real points (leading slots); a (B,) tensor
+                 when the fields carry a leading batch axis.
     """
 
     xyz: torch.Tensor
@@ -34,7 +36,7 @@ class Cloud:
     col: torch.Tensor
     t: torch.Tensor
     label: torch.Tensor
-    count: int
+    count: int | torch.Tensor
 
     @property
     def capacity(self) -> int:
@@ -58,7 +60,13 @@ class Cloud:
 
     def valid_mask(self) -> torch.Tensor:
         """Boolean mask of real (non-padding) points."""
-        return torch.arange(self.capacity, device=self.device) < self.count
+        idx = torch.arange(self.capacity, device=self.device)
+        if isinstance(self.count, torch.Tensor):
+            return idx < self.count.to(self.device)[..., None]
+        return idx < self.count
+
+    def replace(self, **changes) -> "Cloud":
+        return dataclasses.replace(self, **changes)
 
 
 def make_cloud(

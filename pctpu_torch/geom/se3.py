@@ -1,7 +1,9 @@
-"""Host-side SE(3) helpers the registration pipeline needs, with the
-reference's exact arithmetic — copied from ``pctpu/geom/se3.py``."""
+"""Host-side SE(3) helpers the registration and BEV pipelines need, with
+the reference's exact arithmetic — copied from ``pctpu/geom/se3.py``."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -56,3 +58,25 @@ def matmul3_f32(a: np.ndarray, b: np.ndarray) -> np.ndarray:
                 + a[i, 2] * b[2, j]
             )
     return out
+
+
+@dataclasses.dataclass
+class Pose6f:
+    """The part of the 6-DoF pose record (reference/include/Utility.h:38-77)
+    that batch_multi_bev_gen reads: the position, float32 like the reference
+    struct, and the rotation matrix as the Eigen doubles.  pctpu's euler
+    angles and quaternion are read by no ported tool yet."""
+
+    x: float
+    y: float
+    z: float
+    rotation_matrix: np.ndarray
+
+    @classmethod
+    def from_matrix(cls, rotation: np.ndarray, translation: np.ndarray) -> "Pose6f":
+        return cls(
+            x=np.float32(translation[0]),
+            y=np.float32(translation[1]),
+            z=np.float32(translation[2]),
+            rotation_matrix=np.asarray(rotation, np.float64),
+        )

@@ -25,7 +25,8 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = tuple(_PKG / "csrc" / f for f in ("nn_pruned.cu", "segment_sum.cu", "nn_fused.cu"))
+SOURCES = tuple(_PKG / "csrc" / f for f in (
+    "nn_pruned.cu", "segment_sum.cu", "nn_fused.cu", "bev_raster.cu"))
 BUILD_DIR = _PKG.parent / "build" / "pctpu_torch"
 
 # the (TQ, TT, MODE) instances of csrc/nn_pruned.cu's kernel template that
@@ -45,6 +46,7 @@ NVCC_FLAGS = (
 
 launch_counts: dict[str, int] = {
     "nn_pruned": 0, "segment_sum4": 0, "nn_fused": 0, "nn_variant": 0,
+    "ground_sums": 0, "bev_raster": 0,
 }
 
 _lib: ctypes.CDLL | None = None
@@ -135,6 +137,11 @@ def library() -> ctypes.CDLL:
         lib.pctpu_nn_fused.restype = ctypes.c_int
         lib.pctpu_segment_sum4.argtypes = [p, p, i64, p, p]
         lib.pctpu_segment_sum4.restype = ctypes.c_int
+        f, i32 = ctypes.c_float, ctypes.c_int
+        lib.pctpu_bev_raster.argtypes = [
+            p, p, p, i64, i64, i32, i32, f, f, f, f, f, f, p, p, p, p, p,
+        ]
+        lib.pctpu_bev_raster.restype = ctypes.c_int
         _lib = lib
     return _lib
 

@@ -44,9 +44,12 @@ def segment_sum_sorted_reference(values: torch.Tensor, seg: torch.Tensor) -> tor
     return out
 
 
-def segment_sum_sorted(values: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+def segment_sum_sorted(values: torch.Tensor, seg: torch.Tensor,
+                       count_as: str = "segment_sum4") -> torch.Tensor:
     """In-order per-segment sums (see :func:`segment_sum_sorted_reference`).
-    CUDA tensors launch the kernel (or raise); CPU tensors run the twin."""
+    CUDA tensors launch the kernel (or raise); CPU tensors run the twin.
+    ``count_as`` names the launch count the launch adds to (the ground
+    marking's sector sums count as ``ground_sums``)."""
     dev = values.device
     if dev.type == "cpu":
         return segment_sum_sorted_reference(values, seg)
@@ -63,7 +66,7 @@ def segment_sum_sorted(values: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
     rc = _cuda.library().pctpu_segment_sum4(
         values.data_ptr(), seg.data_ptr(), n, out.data_ptr(), _cuda.stream_ptr(dev)
     )
-    _cuda.check(rc, "segment_sum4")
+    _cuda.check(rc, count_as)
     return out
 
 

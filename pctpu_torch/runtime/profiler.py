@@ -26,6 +26,10 @@ class StageTimer:
             self.totals_ms[name] += ms
             self.counts[name] += items
 
+    def average_ms(self, name: str) -> float:
+        c = self.counts.get(name, 0)
+        return self.totals_ms.get(name, 0.0) / c if c else 0.0
+
     @contextlib.contextmanager
     def stage(self, name: str, items: int = 1):
         start = time.perf_counter()

@@ -14,6 +14,9 @@ import numpy as np
 import pytest
 import torch
 
+from pctpu_torch.config import SensorParams
+from pctpu_torch.experiments.scene import multi_bev_tree
+from pctpu_torch.ops import bev, ground, ordering
 from pctpu_torch.ops import cuda_knn as tk
 from pctpu_torch.ops import voxel
 
@@ -73,4 +76,40 @@ def test_segment_sum4(dev):
     xyz, mask = _cloud(rng, 40000, dev, 30.0)
     values, seg, _ = voxel.voxel_segments(xyz, mask, 0.2)
     assert _bit_equal([voxel.segment_sum_sorted(values, seg)],
+                      [voxel.segment_sum_sorted_reference(values, seg)])
+
+
+def _labeled_batch(dev, tmp_path):
+    """Four ordered, ground-marked clouds of a small ray-cast drive."""
+    from pctpu_torch.io.pcd import load_cloud_pcd
+
+    params = SensorParams(16, 512, 10, 0.5)
+    paths = multi_bev_tree(str(tmp_path), params, n_ordered=0, n_raw=4, n_over=0, seed=2)
+    clouds = [load_cloud_pcd(p, capacity=params.grid_size + 1024, device=dev) for p in paths]
+    batch = clouds[0].replace(
+        count=torch.tensor([c.count for c in clouds], device=dev),
+        **{k: torch.stack([getattr(c, k) for c in clouds])
+           for k in ("xyz", "intensity", "row", "col", "t", "label")})
+    return params, ordering.get_ordered_cloud(batch, params)
+
+
+@pytest.mark.cuda
+def test_bev_raster(dev, tmp_path):
+    params, ordered = _labeled_batch(dev, tmp_path)
+    labeled, _ = ground.mark_ground(ordered, params)
+    got = bev.fused_multi_single_bev(labeled, params.height_res)
+    want = bev.fused_multi_single_bev_reference(labeled, params.height_res)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int(got[0].count_nonzero()) > 0 and int(got[1].count_nonzero()) > 0
+
+
+@pytest.mark.cuda
+def test_ground_sums(dev, tmp_path):
+    params, ordered = _labeled_batch(dev, tmp_path)
+    cfg = ground.GroundConfig()
+    _, gm = ground.mark_ground(ordered, params)
+    g = (gm.reshape(gm.shape[0], -1) == 1)
+    srow, scol = ground._belonging_grid(ordered.xyz[..., 0], ordered.xyz[..., 1], cfg)
+    values, seg = ground.sector_sums_rows(srow * cfg.grid_cols + scol, ordered.xyz[..., 2], g, cfg)
+    assert _bit_equal([voxel.segment_sum_sorted(values, seg, count_as="ground_sums")],
                       [voxel.segment_sum_sorted_reference(values, seg)])

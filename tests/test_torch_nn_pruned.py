@@ -169,6 +169,10 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import pctpu_torch, pctpu_torch.ops.cuda_knn\n"
         "import pctpu_torch.cli.batch_top_part_registration\n"
+        "import pctpu_torch.pipelines.multi_bev, pctpu_torch.cli.batch_multi_bev_gen\n"
+        "import pctpu_torch.experiments.scene\n"
+        "from pctpu_torch.runtime import native_io\n"
+        "assert native_io._lib is None and not native_io._tried\n"
         "from pctpu_torch.ops import _cuda\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert not any(m == 'pctpu' or m.startswith('pctpu.') for m in sys.modules)\n"
