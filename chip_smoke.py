@@ -17,16 +17,25 @@ Phases, each of which raises on failure (the exit code is then not 0):
    frame, the source moved by the yaw-only guess: thr 4 m and none; and
    thr 4 m near the truth) and past 262,144 targets; the
    voxel segment sums at 65,536 points.  Zero index mismatches and
-   bit-equal results are required; CUDA-event times of both are printed;
+   bit-equal results are required.  For each 1-NN case: the warp design
+   (``csrc/nn_pruned_warp.cu``) with and without a prepared target, its prep
+   kernel and the earlier block design (the <128, 1024, prod> variant), each
+   against the twin, then CUDA-event times of each (the launches alone and
+   with the wrapper), the pairs the warp design visits (its counting
+   instance), the per-query 32-group oracle's pairs and the bound; one pass
+   on a prepared target must put at most 3 kernels on the card;
+   ``torch.cdist(q, t).min(1)`` at the fine and whole shapes;
 4. the voxel grid on the card twice and on the CPU: bit-identical;
 5. the slice: a keyframe tree of the 65,536-capacity registration scene and
-   moved copies with known yaw and translation goes through the
+   moved copies with known yaw and translation
+   (``experiments.scene.registration_tree``, the tree that
+   ``experiments.registration_ab`` times) goes through the
    ``batch_top_part_registration`` CLI; every pair must succeed within 0.5°
    and 0.10 m of the truth, and each kernel must have been launched;
 6. the same tree and pairs through the ``batch_whole_registration`` CLI
    (direct WHOLE_ICP from the yaw guess, the pruned 1-NN at thr 4 m): every
-   pair must succeed within 0.5° and 0.10 m; pairs/s and the ``[TIME]``
-   fine ms per pair are printed;
+   pair must succeed within 0.5° and 0.10 m; pairs/s, the ``[TIME]``
+   fine ms and the NN passes per pair are printed;
 7. the fused unpruned 1-NN (``cuda_knn.nn_1_fused``) at 65,536 × 65,536
    (uniform ±70 m), 16,384² and on the unsorted fine-stage bucket, 5% of
    queries and targets masked: 0 mismatches against its twin, and the
@@ -71,14 +80,6 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
-def pose(yaw_deg: float, tx: float, ty: float) -> np.ndarray:
-    th = math.radians(yaw_deg)
-    m = np.eye(4)
-    m[:2, :2] = [[math.cos(th), -math.sin(th)], [math.sin(th), math.cos(th)]]
-    m[:2, 3] = tx, ty
-    return m
-
-
 def pose_error(tf: np.ndarray, truth: np.ndarray) -> tuple[float, float]:
     """(yaw error in degrees, xy translation error in metres)."""
     yaw = math.degrees(math.atan2(tf[1, 0], tf[0, 0]) - math.atan2(truth[1, 0], truth[0, 0]))
@@ -104,9 +105,11 @@ def print_ptxas(path) -> None:
             name = m.group(1)
             tpl = re.findall(r"ILi(\d+)ELi(\d+)ELi(\d+)E", name)
             short = re.search(r"(nn_pruned_kernel|nn_fused_kernel|segment_sum4_kernel"
-                              r"|bev_raster_kernel|bev_expand_kernel)", name)
+                              r"|bev_raster_kernel|bev_expand_kernel|nn_prep_kernel"
+                              r"|nn_seed_kernel|nn_main_kernel|nn_finish_kernel)", name)
+            counting = "ILb1E" in name
             name = (short.group(1) if short else name) + (
-                f"<{','.join(tpl[0])}>" if tpl else "")
+                f"<{','.join(tpl[0])}>" if tpl else "<counting>" if counting else "")
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
@@ -148,17 +151,109 @@ def tree_files(root: str) -> dict[str, bytes]:
     return files
 
 
-def device_ops_per_call(fn) -> str:
-    """Kernels and copies one call puts on the card, counted by
-    torch.profiler."""
+def profile_calls(fn, reps: int = 50) -> tuple[int, int, dict[str, float]]:
+    """What one call of ``fn`` puts on the card, by torch.profiler over
+    ``reps`` calls after a warm-up: (kernels, copies and memsets, {kernel
+    name: device ms}), per call.  The counts are rounded: the profiler can
+    miss an event or two of a window."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    copies = sum(1 for n in names if n.startswith(("Memcpy", "Memset")))
-    return f"{len(names) - copies} kernels + {copies} copies/memsets"
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = [e for e in events if e.name.startswith(("Memcpy", "Memset"))]
+    ms: dict[str, float] = {}
+    for e in events:
+        if e not in copies:
+            name = m.group(0) if (m := re.search(r"\w+_kernel", e.name)) else e.name
+            ms[name] = ms.get(name, 0.0) + e.device_time_total / 1e3 / reps
+    return round((len(events) - len(copies)) / reps), round(len(copies) / reps), ms
+
+
+def library_sums_ms(values: torch.Tensor, seg: torch.Tensor) -> tuple[float, float]:
+    """The library yardsticks of the segment sums, each one call over the
+    rows that join a segment: ``torch.index_add`` (its atomics add in no
+    fixed order) and ``torch.segment_reduce`` given the run lengths."""
+    from pctpu_torch.experiments.card import cuda_ms
+
+    keep = seg >= 0
+    idx, rows = seg[keep], values[keep]
+    lengths = torch.unique_consecutive(idx, return_counts=True)[1]
+    zeros = torch.zeros_like(values)
+    return (cuda_ms(lambda: torch.index_add(zeros, 0, idx, rows), reps=20),
+            cuda_ms(lambda: torch.segment_reduce(rows, "sum", lengths=lengths), reps=20))
+
+
+def nn_case(name: str, args, md, smi: str) -> dict:
+    """One phase-3 case of the bbox-pruned 1-NN: the warp design with and
+    without a prepared target, the prep kernel and the earlier block design
+    (the <128, 1024, prod> variant), each held bit for bit against its twin;
+    then their times, the pairs the warp design visits (its counting
+    instance), the per-query 32-group oracle's pairs and the bound."""
+    from pctpu_torch.experiments.card import NN_FLOP_PER_PAIR, bound_ms, cuda_ms, oracle_pairs
+    from pctpu_torch.ops import cuda_knn
+
+    q, qm, t, tm = args
+    thr2 = cuda_knn._thr2(md)
+    want = cuda_knn.nn_1_pruned_reference(*args, max_distance=md)
+    prep = cuda_knn.prepare_target(t, tm)
+    ref = cuda_knn.prepare_target_reference(t, tm)
+    prep_err = compare(f"{name}: prep kernel",
+                       [prep.packed, prep.group_box, prep.tile_box],
+                       [ref.packed, ref.group_box, ref.tile_box])
+    err = 0.0
+    for label, got in (
+            ("warp design", cuda_knn.nn_1_pruned(*args, max_distance=md)),
+            ("warp design, prepared", cuda_knn.nn_1_pruned(q, qm, max_distance=md,
+                                                           prepared=prep)),
+            ("block design", cuda_knn.nn_1_pruned_variant(*args, md, cuda_knn.TQ, cuda_knn.TT,
+                                                         "prod"))):
+        torch.cuda.synchronize()
+        err = max(err, compare(f"{name}: {label}", got, want))
+    d2 = want[1]
+    launch = cuda_knn._pass_launcher(q, qm, prep, thr2)[0]
+    old = cuda_knn._pruned_launcher(q, qm, t, tm, thr2, cuda_knn.TQ, cuda_knn.TT, "prod")[0]
+    out = {
+        "alone": cuda_ms(launch, reps=50),
+        "wrapper": cuda_ms(lambda: cuda_knn.nn_1_pruned(q, qm, max_distance=md,
+                                                        prepared=prep), reps=50),
+        "unprepared": cuda_ms(lambda: cuda_knn.nn_1_pruned(*args, max_distance=md), reps=50),
+        "prep": cuda_ms(lambda: cuda_knn.prepare_target(t, tm), reps=50),
+        "prep_twin": cuda_ms(lambda: cuda_knn.prepare_target_reference(t, tm), reps=5),
+        "old_alone": cuda_ms(old, reps=20),
+        "old_wrapper": cuda_ms(lambda: cuda_knn.nn_1_pruned_variant(
+            *args, md, cuda_knn.TQ, cuda_knn.TT, "prod"), reps=20),
+        "twin": cuda_ms(lambda: cuda_knn.nn_1_pruned_reference(*args, max_distance=md),
+                        reps=3, warmup=1),
+        "err": err, "prep_err": prep_err, "library": None,
+    }
+    by_kernel = profile_calls(launch, reps=20)[2]
+    visited = cuda_knn.pairs_visited(q, qm, prep, md)
+    oracle = oracle_pairs(q, qm, d2, prep.group_box, thr2)
+    nq, nt = q.shape[0], t.shape[0]
+    # the bytes the work needs, no padding: the packed target's 12 B a point
+    # (a masked point is +inf, so no mask) and six box rows of 4 B for each
+    # 32-point group and 1,024-point tile; each query's 13 B, 8 B out
+    target_bytes = nt * 12 + 6 * 4 * (-(-nt // cuda_knn.GROUP) + -(-nt // cuda_knn.TT))
+    n_bytes = nq * 13 + target_bytes + nq * 8
+    out["bound"], out["bound_by"] = bound_ms(n_bytes, NN_FLOP_PER_PAIR * oracle)
+    out["prep_bound"], out["prep_bound_by"] = bound_ms(nt * 13 + target_bytes, 0)
+    print(f"  {name}: Q={nq} T={nt} found={int(torch.isfinite(d2).sum())}; warp design "
+          f"alone {out['alone']:.4f} ms, with wrapper {out['wrapper']:.4f} ms, unprepared "
+          f"{out['unprepared']:.4f} ms (prep {out['prep']:.4f} ms, its twin "
+          f"{out['prep_twin']:.4f} ms); block design alone {out['old_alone']:.4f} ms, with "
+          f"wrapper {out['old_wrapper']:.4f} ms; twin {out['twin']:.4f} ms; pairs visited "
+          f"{visited} ({visited / (nq * nt):.6f} of Q·T), oracle {oracle}; bound "
+          f"{out['bound']:.6f} ms ({out['bound_by']}: {n_bytes} B, "
+          f"{NN_FLOP_PER_PAIR * oracle} flop), reached {out['bound'] / out['alone']:.4f}; prep bound "
+          f"{out['prep_bound']:.6f} ms ({out['prep_bound_by']}: {nt * 13 + target_bytes} B); "
+          f"device ms by kernel (torch.profiler) "
+          f"{ {k: round(v, 6) for k, v in by_kernel.items()} }; card {smi}")
+    return out
 
 
 def multi_bev_phase(dev: torch.device, smi: str, n_ordered: int = 64) -> list[dict]:
@@ -167,7 +262,7 @@ def multi_bev_phase(dev: torch.device, smi: str, n_ordered: int = 64) -> list[di
     from pctpu_torch.cli import batch_multi_bev_gen as bev_cli
     from pctpu_torch.config import GroundConfig, get_sensor_params
     from pctpu_torch.experiments import oracle
-    from pctpu_torch.experiments.card import cuda_ms
+    from pctpu_torch.experiments.card import bound_ms, cuda_ms
     from pctpu_torch.experiments.scene import multi_bev_tree
     from pctpu_torch.io.pcd import read_pcd
     from pctpu_torch.io.png import read_gray_png
@@ -206,14 +301,24 @@ def multi_bev_phase(dev: torch.device, smi: str, n_ordered: int = 64) -> list[di
                       reps=20)
     sums_ref_ms = cuda_ms(lambda: voxel.segment_sum_sorted_reference(values, seg), reps=2,
                           warmup=1)
-    bev_err = compare("bev_raster (B = 8)", bev.fused_multi_single_bev(labeled, params.height_res),
+    sums_lib_ms, sums_reduce_ms = library_sums_ms(values, seg)
+    # rows (16 B) and ids (8 B) read once, sums (16 B a row) written once
+    sums_bound = bound_ms(values.shape[0] * (16 + 8 + 16), 4 * values.shape[0])
+    rasters = bev.fused_multi_single_bev(labeled, params.height_res)
+    bev_err = compare("bev_raster (B = 8)", rasters,
                       bev.fused_multi_single_bev_reference(labeled, params.height_res))
     bev_ms = cuda_ms(lambda: bev.fused_multi_single_bev(labeled, params.height_res), reps=20)
     bev_ref_ms = cuda_ms(lambda: bev.fused_multi_single_bev_reference(labeled, params.height_res),
                          reps=5)
-    print(f"  ground sums: kernel {sums_ms:.4f} ms, twin {sums_ref_ms:.4f} ms "
-          f"({values.shape[0]} rows, largest sector {largest} points); card {smi}")
-    print(f"  bev_raster: kernel {bev_ms:.4f} ms, twin {bev_ref_ms:.4f} ms; card {smi}")
+    # xyz and label (16 B a point) read once, both rasters (1 B a cell) written
+    bev_bound = bound_ms(labeled.label.numel() * 16 + sum(r.numel() for r in rasters), 0)
+    print(f"  ground sums: kernel {sums_ms:.4f} ms, twin {sums_ref_ms:.4f} ms, "
+          f"torch.index_add {sums_lib_ms:.4f} ms, torch.segment_reduce {sums_reduce_ms:.4f} ms, "
+          f"bound {sums_bound[0]:.6f} ms "
+          f"({sums_bound[1]}; {values.shape[0]} rows, largest sector {largest} points); "
+          f"card {smi}")
+    print(f"  bev_raster: kernel {bev_ms:.4f} ms, twin {bev_ref_ms:.4f} ms, bound "
+          f"{bev_bound[0]:.6f} ms ({bev_bound[1]}); card {smi}")
     for compat in ("bitexact", "tolerance"):
         def step(compat=compat):
             return preprocess_batch(clouds, params, assume_ordered=True, compat=compat)
@@ -224,8 +329,9 @@ def multi_bev_phase(dev: torch.device, smi: str, n_ordered: int = 64) -> list[di
         for _ in range(5):
             multi.cpu()
         d2h_ms = (time.perf_counter() - t1) * 1e3 / 5
+        kernels, copies, _ = profile_calls(step, reps=3)
         print(f"  preprocess_batch B = 8 ({compat}): {dev_ms:.4f} ms (CUDA events), "
-              f"{device_ops_per_call(step)} per batch; multi BEV to the host "
+              f"{kernels} kernels + {copies} copies/memsets per batch; multi BEV to the host "
               f"({multi.numel() / 1e6:.2f} MB) {d2h_ms:.4f} ms; card {smi}")
 
     # --- 9b. the CLI in both modes, after a warm-up -----------------------
@@ -236,7 +342,7 @@ def multi_bev_phase(dev: torch.device, smi: str, n_ordered: int = 64) -> list[di
     shutil.copy(os.path.join(src, "keyframe_pose.csv"), warm)
     for compat in ("bitexact", "tolerance"):
         with contextlib.redirect_stdout(io.StringIO()):
-            bev_cli.main([warm, "HDL_64E", f"--compat={compat}"])
+            bev_cli.main([warm, "HDL_64E", f"--compat={compat}", f"--device={dev.type}"])
     trees = {}
     for compat in ("bitexact", "tolerance"):
         captured = io.StringIO()
@@ -244,7 +350,7 @@ def multi_bev_phase(dev: torch.device, smi: str, n_ordered: int = 64) -> list[di
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(captured):
-            rc = bev_cli.main([src, "HDL_64E", f"--compat={compat}"])
+            rc = bev_cli.main([src, "HDL_64E", f"--compat={compat}", f"--device={dev.type}"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(_cuda.launch_counts)
@@ -336,10 +442,12 @@ def multi_bev_phase(dev: torch.device, smi: str, n_ordered: int = 64) -> list[di
     return [
         {"name": "bev_raster", "route": "cuda", "source": "pctpu_torch/csrc/bev_raster.cu",
          "replaces": "pctpu/ops/bev.py:95", "launches": bev_launches,
-         "max_abs_err": bev_err, "ms": bev_ms, "plain_ms": bev_ref_ms},
+         "max_abs_err": bev_err, "ms": bev_ms, "plain_ms": bev_ref_ms,
+         "bound_ms": bev_bound[0], "bound_by": bev_bound[1], "library_ms": None},
         {"name": "ground_sums", "route": "cuda", "source": "pctpu_torch/csrc/segment_sum.cu",
          "replaces": "pctpu/ops/ground.py:113", "launches": sums_launches,
-         "max_abs_err": sums_err, "ms": sums_ms, "plain_ms": sums_ref_ms},
+         "max_abs_err": sums_err, "ms": sums_ms, "plain_ms": sums_ref_ms,
+         "bound_ms": sums_bound[0], "bound_by": sums_bound[1], "library_ms": sums_lib_ms},
     ]
 
 
@@ -349,13 +457,13 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from pctpu_torch import make_cloud  # the package import pins full-f32 matmuls
+    import pctpu_torch  # noqa: F401  (the package import pins full-f32 matmuls)
     from pctpu_torch.cli import batch_top_part_registration as cli
     from pctpu_torch.cli import batch_whole_registration as whole_cli
     from pctpu_torch.experiments import nn_argmin
-    from pctpu_torch.experiments.card import cuda_ms, nvidia_smi_line
-    from pctpu_torch.experiments.scene import registration_scene
-    from pctpu_torch.io.pcd import save_cloud_pcd
+    from pctpu_torch.experiments.card import bound_ms, cuda_ms, nvidia_smi_line
+    from pctpu_torch.experiments.scene import (TREE_PAIRS, TREE_POSES, pose, registration_scene,
+                                               registration_tree)
     from pctpu_torch.ops import _cuda, cuda_knn, knn, voxel
     from pctpu_torch.ops.transform import transform_xyz
     from pctpu_torch.pipelines import registration
@@ -444,21 +552,32 @@ def main() -> int:
         (f"{big_t.shape[0]} targets, no thr", (big_q, big_qm, big_t, big_tm), None),
         (f"{big_t.shape[0]} targets, thr 2 m", (big_q, big_qm, big_t, big_tm), 2.0),
     ]
-    print("kernel vs twin (ms per pass, CUDA events; kernel = full wrapper):")
-    nn_err = 0.0
-    timings = {}
+    print("bbox-pruned 1-NN (K1/K2): the warp design (csrc/nn_pruned_warp.cu) and the "
+          "earlier block design (<128, 1024, prod>) against the twin, bit for bit; ms per pass "
+          f"(CUDA events); card {smi}")
+    nn_err = prep_err = 0.0
+    nn_ms = {}
     for name, args, md in nn_cases:
-        got = cuda_knn.nn_1_pruned(*args, max_distance=md)
-        want = cuda_knn.nn_1_pruned_reference(*args, max_distance=md)
-        torch.cuda.synchronize()
-        nn_err = max(nn_err, compare(name, got, want))
-        found = int(torch.isfinite(got[1]).sum())
-        k_ms = cuda_ms(lambda: cuda_knn.nn_1_pruned(*args, max_distance=md), reps=20)
-        r_ms = cuda_ms(lambda: cuda_knn.nn_1_pruned_reference(*args, max_distance=md),
-                       reps=3, warmup=1)
-        timings[name] = (k_ms, r_ms)
-        print(f"  {name}: Q={args[0].shape[0]} T={args[2].shape[0]} found={found} "
-              f"kernel {k_ms:.4f} ms, twin {r_ms:.4f} ms")
+        nn_ms[name] = nn_case(name, args, md, smi)
+        nn_err = max(nn_err, nn_ms[name]["err"])
+        prep_err = max(prep_err, nn_ms[name]["prep_err"])
+    fine_args = nn_cases[0][1]
+    fine_prep = cuda_knn.prepare_target(fine_args[2], fine_args[3])
+    kernels, copies, by_kernel = profile_calls(
+        lambda: cuda_knn.nn_1_pruned(*fine_args[:2], max_distance=1.0, prepared=fine_prep))
+    bare = profile_calls(lambda: cuda_knn.nn_1_pruned(*fine_args, max_distance=1.0))
+    print(f"  one pass on a prepared target (torch.profiler over 50): {kernels} kernels + "
+          f"{copies} copies/memsets, kernels {sorted(by_kernel)}; unprepared: {bare[0]} kernels + "
+          f"{bare[1]} copies/memsets")
+    if kernels > 3 or copies:
+        raise AssertionError("a pass on a prepared target launches more than 3 kernels")
+    # the library yardstick: torch.cdist(q, t).min(1) at the fine and whole shapes
+    for name in ("fine thr 1 m", "whole thr 4 m, yaw guess"):
+        q, _, t, _ = next(a for n, a, _ in nn_cases if n == name)
+        nn_ms[name]["library"] = cuda_ms(lambda: torch.cdist(q, t).min(1), reps=3, warmup=1)
+        torch.cuda.empty_cache()
+        print(f"  {name}: torch.cdist(q, t).min(1) {nn_ms[name]['library']:.4f} ms "
+              f"(Q={q.shape[0]}, T={t.shape[0]}); card {smi}")
 
     values, seg, _ = voxel.voxel_segments(src, src_m, 0.2)
     seg_err = compare("segment sums (65,536 points)",
@@ -466,7 +585,12 @@ def main() -> int:
                       [voxel.segment_sum_sorted_reference(values, seg)])
     seg_ms = cuda_ms(lambda: voxel.segment_sum_sorted(values, seg), reps=50)
     seg_ref_ms = cuda_ms(lambda: voxel.segment_sum_sorted_reference(values, seg), reps=5)
-    print(f"  segment sums: kernel {seg_ms:.4f} ms, twin {seg_ref_ms:.4f} ms")
+    seg_lib_ms, seg_reduce_ms = library_sums_ms(values, seg)
+    seg_bound = bound_ms(values.shape[0] * (16 + 8 + 16), 4 * values.shape[0])
+    print(f"  segment sums: kernel {seg_ms:.4f} ms, twin {seg_ref_ms:.4f} ms, "
+          f"torch.index_add {seg_lib_ms:.4f} ms, torch.segment_reduce {seg_reduce_ms:.4f} ms, "
+          f"bound {seg_bound[0]:.6f} ms "
+          f"({seg_bound[1]})")
 
     # --- 4. the voxel grid: deterministic on the card, equal to the CPU ------
     runs = [voxel.voxel_downsample(src, src_m, 0.2) for _ in range(2)]
@@ -480,30 +604,14 @@ def main() -> int:
     # --- 5. the slice through the CLI ----------------------------------------
     tree = os.path.join(ROOT, "build", "chip_smoke_tree")
     shutil.rmtree(tree, ignore_errors=True)
-    os.makedirs(os.path.join(tree, "clouds"))
-    poses = [pose(0.0, 0.0, 0.0), pose(17.0, 1.5, -2.0), pose(-25.0, -3.0, 1.0),
-             pose(178.0, 2.0, 2.5)]
-    for k, m in enumerate(poses):
-        moved = xyz @ m[:3, :3].T.astype(np.float32) + m[:3, 3].astype(np.float32)
-        moved = moved + rng.normal(0, 0.01, moved.shape).astype(np.float32)
-        save_cloud_pcd(os.path.join(tree, "clouds", f"{k:06d}.pcd"),
-                       make_cloud(moved, label=lab))
-    pairs = [(0, 1, 3.0), (1, 2, -2.0), (2, 0, 4.0), (0, 3, -3.0), (3, 1, 2.5)]
+    registration_tree(tree)
+    pairs = TREE_PAIRS
 
     def relative(q_i: int, m_i: int) -> np.ndarray:
-        return poses[m_i] @ np.linalg.inv(poses[q_i])
-
-    def guess_deg(q_i: int, m_i: int, off: float) -> float:
-        r = relative(q_i, m_i)
-        return math.degrees(math.atan2(r[1, 0], r[0, 0])) + off
+        return TREE_POSES[m_i] @ np.linalg.inv(TREE_POSES[q_i])
 
     match = os.path.join(tree, "match_result.txt")
-    with open(match, "w") as f:
-        for q_i, m_i, off in pairs:
-            f.write(f"{q_i} {m_i} {guess_deg(q_i, m_i, off):.3f}\n")
     warm = os.path.join(tree, "warmup.txt")
-    with open(warm, "w") as f:
-        f.write(f"0 1 {guess_deg(0, 1, 3.0):.3f}\n")
 
     fine_transforms = []
     real_register_pair = registration.register_pair
@@ -546,10 +654,11 @@ def main() -> int:
         print(f"  pair {q_i}->{m_i}: yaw error {yaw_err:.6f} deg, translation error {t_err:.6f} m")
         if not (np.all(np.isfinite(tf)) and yaw_err < 0.5 and t_err < 0.10):
             raise AssertionError(f"pair {q_i}->{m_i} off the truth")
-    require_launched(launches, ("nn_pruned", "segment_sum4"), "the top-part CLI run")
+    require_launched(launches, ("nn_prep", "nn_pruned", "segment_sum4"), "the top-part CLI run")
     print(f"slice: {len(pairs)} pairs in {wall:.3f} s = {len(pairs) / wall:.4f} pairs/s; "
           f"[TIME] per pair coarse {stage_ms['coarse']:.3f} ms, fine {stage_ms['fine']:.3f} ms; "
-          f"launches {launches}; card {smi}")
+          f"NN passes per pair {launches['nn_pruned'] / len(pairs):.1f}, target preps per pair "
+          f"{launches['nn_prep'] / len(pairs):.1f}; launches {launches}; card {smi}")
 
     # --- 6. batch_whole_registration through its CLI, on the same tree -------
     whole_transforms = []
@@ -593,13 +702,15 @@ def main() -> int:
               f"translation error {t_err:.6f} m")
         if not (np.all(np.isfinite(tf)) and yaw_err < 0.5 and t_err < 0.10):
             raise AssertionError(f"whole pair {q_i}->{m_i} off the truth")
-    require_launched(whole_launches, ("nn_pruned", "segment_sum4"),
+    require_launched(whole_launches, ("nn_prep", "nn_pruned", "segment_sum4"),
                      "the batch_whole_registration CLI run")
     whole_fine = float(re.search(r"\[TIME\] Avg Tiempo for 2nd Stage \(fine\): ([0-9.eE+-]+)",
                                  log).group(1))
     print(f"batch_whole_registration: {len(pairs)} pairs in {whole_wall:.3f} s = "
           f"{len(pairs) / whole_wall:.4f} pairs/s; [TIME] fine {whole_fine:.3f} ms per pair; "
-          f"launches {whole_launches}; card {smi}")
+          f"NN passes per pair {whole_launches['nn_pruned'] / len(pairs):.1f}, target preps "
+          f"per pair {whole_launches['nn_prep'] / len(pairs):.1f}; launches {whole_launches}; "
+          f"card {smi}")
     shutil.rmtree(tree)
 
     # --- 7. the fused unpruned 1-NN (K3) -------------------------------------
@@ -636,6 +747,14 @@ def main() -> int:
         fused_ms[name] = (k_ms, r_ms, x_ms)
         print(f"  {name}: kernel {k_ms:.4f} ms, twin {r_ms:.4f} ms, knn.nn_1 {x_ms:.4f} ms "
               f"(knn.nn_1 picks the same index for {agree:.6f} of queries); card {smi}")
+    # the path's case: its bound (8 flops a pair on every pair) and torch.cdist(q, t).min(1)
+    fq, _, ft, _ = fused_cases[0][1]
+    fused_bound = bound_ms(fq.shape[0] * (13 + 8) + ft.shape[0] * 13,
+                           8 * fq.shape[0] * ft.shape[0])
+    fused_lib_ms = cuda_ms(lambda: torch.cdist(fq, ft).min(1), reps=3, warmup=1)
+    torch.cuda.empty_cache()
+    print(f"  {fused_cases[0][0]}: bound {fused_bound[0]:.6f} ms ({fused_bound[1]}), "
+          f"torch.cdist(q, t).min(1) {fused_lib_ms:.4f} ms; card {smi}")
 
     # --- 8. the argmin and tile-shape experiment (K4) ------------------------
     _cuda.reset_launch_counts()
@@ -656,22 +775,33 @@ def main() -> int:
     # --- 9. batch_multi_bev_gen ----------------------------------------------
     bev_kernels = multi_bev_phase(dev, smi)
 
-    fine_ms = timings["fine thr 1 m"]
+    # K1, the prep and K4's <128, 1024, prod> on the fine pass at thr 1 m
+    fine = nn_ms["fine thr 1 m"]
     big_fused = fused_ms[fused_cases[0][0]]
     print(json.dumps({"kernels": [
-        {"name": "nn_pruned", "route": "cuda", "source": "pctpu_torch/csrc/nn_pruned.cu",
+        {"name": "nn_pruned", "route": "cuda", "source": "pctpu_torch/csrc/nn_pruned_warp.cu",
          "replaces": "pctpu/ops/pallas_knn.py:275", "launches": launches["nn_pruned"],
-         "max_abs_err": nn_err, "ms": fine_ms[0], "plain_ms": fine_ms[1]},
+         "max_abs_err": nn_err, "ms": fine["alone"], "plain_ms": fine["twin"],
+         "bound_ms": fine["bound"], "bound_by": fine["bound_by"],
+         "library_ms": fine["library"]},
+        {"name": "nn_prep", "route": "cuda", "source": "pctpu_torch/csrc/nn_pruned_warp.cu",
+         "replaces": "pctpu/ops/pallas_knn.py:275", "launches": launches["nn_prep"],
+         "max_abs_err": prep_err, "ms": fine["prep"], "plain_ms": fine["prep_twin"],
+         "bound_ms": fine["prep_bound"], "bound_by": fine["prep_bound_by"],
+         "library_ms": None},
         {"name": "segment_sum4", "route": "cuda", "source": "pctpu_torch/csrc/segment_sum.cu",
          "replaces": "pctpu/ops/voxel.py:80", "launches": launches["segment_sum4"],
-         "max_abs_err": seg_err, "ms": seg_ms, "plain_ms": seg_ref_ms},
+         "max_abs_err": seg_err, "ms": seg_ms, "plain_ms": seg_ref_ms,
+         "bound_ms": seg_bound[0], "bound_by": seg_bound[1], "library_ms": seg_lib_ms},
         {"name": "nn_fused", "route": "cuda", "source": "pctpu_torch/csrc/nn_fused.cu",
          "replaces": "pctpu/ops/pallas_knn.py:38", "launches": fused_launches,
-         "max_abs_err": fused_err, "ms": big_fused[0], "plain_ms": big_fused[1]},
+         "max_abs_err": fused_err, "ms": big_fused[0], "plain_ms": big_fused[1],
+         "bound_ms": fused_bound[0], "bound_by": fused_bound[1], "library_ms": fused_lib_ms},
         {"name": "nn_variant", "route": "cuda", "source": "pctpu_torch/csrc/nn_pruned.cu",
          "replaces": "scripts/exp_nn_argmin.py:118", "launches": variant_launches,
-         "max_abs_err": exp["max_abs_err"], "ms": anchor["ms_per_pass"],
-         "plain_ms": exp["twin_ms"]},
+         "max_abs_err": max(exp["max_abs_err"], nn_err), "ms": fine["old_alone"],
+         "plain_ms": fine["twin"], "bound_ms": fine["bound"], "bound_by": fine["bound_by"],
+         "library_ms": fine["library"]},
         *bev_kernels,
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import sys
 
+import torch
+
 
 def split_args(argv: list[str]) -> tuple[list[str], dict[str, str]]:
     pos: list[str] = []
@@ -21,6 +23,24 @@ def split_args(argv: list[str]) -> tuple[list[str], dict[str, str]]:
 def usage_exit(msg: str) -> None:
     print(msg)
     sys.exit(1)
+
+
+def pick_device(kw: dict[str, str]) -> str:
+    """The ``--device=cuda|cpu`` extension (default ``cuda``), printed as
+    ``device: ...``.  Without a CUDA card the run stops unless the CPU was
+    asked for: nothing falls back silently."""
+    device = kw.get("device", "cuda")
+    if device not in ("cuda", "cpu"):
+        usage_exit(f"--device must be cuda or cpu (got {device!r})")
+    if device == "cuda":
+        if not torch.cuda.is_available():
+            print("no CUDA card found (torch.cuda.is_available() is false); "
+                  "pass --device=cpu to run on the CPU", file=sys.stderr)
+            sys.exit(2)
+        print(f"device: cuda ({torch.cuda.get_device_name()})")
+    else:
+        print("device: cpu")
+    return device
 
 
 def int_kw(kw: dict[str, str], key: str, default: int | None) -> int | None:

@@ -2,15 +2,13 @@
 reference/BatchMultiBevGen.cpp:664-689, the same as
 ``pctpu.cli.batch_multi_bev_gen``.
 
-Runs on the CUDA card when there is one, on the CPU otherwise; the device
-in use is printed.  Device meshes, multi-process sharding and the profiler
-trace are not ported yet."""
+Runs on the CUDA card, or on the CPU with ``--device=cpu``; without a card
+and that flag it exits non-zero.  The device in use is printed.  Device
+meshes, multi-process sharding and the profiler trace are not ported yet."""
 
 import sys
 
-import torch
-
-from pctpu_torch.cli._common import int_kw, split_args, usage_exit
+from pctpu_torch.cli._common import int_kw, pick_device, split_args, usage_exit
 from pctpu_torch.pipelines.multi_bev import run_multi_bev
 
 USAGE = """\
@@ -27,7 +25,7 @@ Usage: batch_multi_bev_gen [keyframes_root_dir] [sensor_type]
 This binary generates ground-removed point clouds, single & multi layer BEV
 images and creates geometric distance-based labels for each point cloud.
 
-Extensions: --resume  --batch-size=N  --no-pngs
+Extensions: --resume  --batch-size=N  --no-pngs  --device=cuda|cpu (default cuda)
             --compat=bitexact|tolerance (ground-grid accumulation: bit-exact
             C++ rounding sequence (default) vs one matmul per batch)
             (--devices, --num-processes, --process-id, --coordinator and
@@ -46,12 +44,7 @@ def main(argv=None) -> int:
             "pctpu_torch runs batch_multi_bev_gen in one process on one device: "
             "--devices, multi-process flags and --profile are not ported"
         )
-    if torch.cuda.is_available():
-        device = "cuda"
-        print(f"device: cuda ({torch.cuda.get_device_name()})")
-    else:
-        device = "cpu"
-        print("device: cpu")
+    device = pick_device(kw)
     run_multi_bev(
         pos[0],
         pos[1],

@@ -3,15 +3,13 @@ reference/BatchTopPartRegistration.cpp:311-321
 (``batch_top_part_registration <match_result.txt> <point_cloud_dir>``), the
 same as ``pctpu.cli.batch_top_part_registration``.
 
-Runs on the CUDA card when there is one, on the CPU otherwise; the device
-in use is printed.  Pair batching, device meshes and multi-process sharding
-are not ported yet."""
+Runs on the CUDA card, or on the CPU with ``--device=cpu``; without a card
+and that flag it exits non-zero.  The device in use is printed.  Pair
+batching, device meshes and multi-process sharding are not ported yet."""
 
 import sys
 
-import torch
-
-from pctpu_torch.cli._common import int_kw, split_args, usage_exit
+from pctpu_torch.cli._common import int_kw, pick_device, split_args, usage_exit
 from pctpu_torch.pipelines.registration import run_batch_top_part_registration
 
 _NOT_PORTED = ("devices", "num_processes", "process_id", "coordinator")
@@ -23,19 +21,15 @@ def main(argv=None) -> int:
         usage_exit(
             "Usage: batch_top_part_registration <match_result.txt> <point_cloud_dir>\n"
             "Extensions: --capacity=N  --flat-cap=N  --report=PATH\n"
-            "            --resume (skip pairs already in <report>.progress)"
+            "            --resume (skip pairs already in <report>.progress)\n"
+            "            --device=cuda|cpu (default cuda)"
         )
     if int_kw(kw, "pair_batch", 1) != 1 or any(k in kw for k in _NOT_PORTED):
         raise NotImplementedError(
             "pctpu_torch runs pairs one after another on one device: "
             "--pair-batch>1, --devices and multi-process flags are not ported"
         )
-    if torch.cuda.is_available():
-        device = "cuda"
-        print(f"device: cuda ({torch.cuda.get_device_name()})")
-    else:
-        device = "cpu"
-        print("device: cpu")
+    device = pick_device(kw)
     run_batch_top_part_registration(
         pos[0],
         pos[1],

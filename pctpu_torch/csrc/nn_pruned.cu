@@ -6,17 +6,14 @@
 // nn_pruned_kernel<TQ, TT, MODE>: exact bbox-pruned 1-NN of spatially
 //    (Morton) sorted queries in a spatially sorted target.
 //
-//    The <128, 1024, kProd> instance (pctpu_nn_pruned) replaces the TPU
-//    kernels pctpu/ops/pallas_knn.py:275 (_make_nn_pruned_loop_kernel) and
-//    pctpu/ops/pallas_knn.py:221 (_make_nn_pruned_kernel, the 2-D-grid form
-//    pctpu takes past 262,144 targets: a block here holds only one target
-//    tile in shared memory, so there is no capacity cap and one kernel
-//    serves both).
-//
-//    The other instances (pctpu_nn_variant) replace the TPU kernel
-//    scripts/exp_nn_argmin.py:118 (make_kernel(...).kernel): the same loop
-//    with other argmin bodies and tile shapes.  Every MODE returns the same
-//    winners; they differ in how the per-tile argmin is formed:
+//    Its instances (pctpu_nn_variant) replace the TPU kernel
+//    scripts/exp_nn_argmin.py:118 (make_kernel(...).kernel): one block-wide
+//    loop with several argmin bodies and tile shapes.  The <128, 1024, kProd>
+//    instance is the first Hopper form of the production 1-NN (the TPU
+//    kernels pctpu/ops/pallas_knn.py:275 and :221); csrc/nn_pruned_warp.cu
+//    took that place, and this instance stays as its yardstick.  Every MODE
+//    returns the same winners; they differ in how the per-tile argmin is
+//    formed:
 //      kProd       running (d², index) pair, one compare per target;
 //      kExplicit2  per tile the minimum d² first, then the lowest index that
 //                  reaches it (two passes over the tile);
@@ -289,15 +286,6 @@ extern "C" {
 
 // The launchers return cudaGetLastError() right after the launch: a launch
 // the card refuses never runs, and a later synchronize would not report it.
-
-int pctpu_nn_pruned(const float* q, const uint8_t* qmask, int64_t nq,
-                    const float* t, const uint8_t* tmask, int64_t nt,
-                    const float* qbox, int64_t tq, const float* tbox, int64_t tt,
-                    float thr2, float* out_val, int32_t* out_idx, void* stream) {
-  if (tq != 128 || tt != 1024) return (int)cudaErrorInvalidValue;
-  return launch<128, 1024, kProd>(q, qmask, nq, t, tmask, nt, qbox, tbox, thr2,
-                                  out_val, out_idx, (cudaStream_t)stream);
-}
 
 int pctpu_nn_variant(const float* q, const uint8_t* qmask, int64_t nq,
                      const float* t, const uint8_t* tmask, int64_t nt,

@@ -1,0 +1,421 @@
+// Hand-written Hopper kernels of the bbox-pruned 1-NN, built by nvcc with the
+// other sources of csrc/ into one shared library with a plain C interface
+// (pctpu_torch/ops/_cuda.py) and launched through ctypes on PyTorch's
+// current stream.
+//
+// Replaces the TPU kernels pctpu/ops/pallas_knn.py:275
+// (_make_nn_pruned_loop_kernel, every ICP correspondence and fitness pass)
+// and pctpu/ops/pallas_knn.py:221 (_make_nn_pruned_kernel, the 2-D-grid form
+// pctpu takes past 262,144 targets: nothing here depends on the target's
+// size but the grid, so one design serves both).
+//
+// Contract (cuda_knn.nn_1_pruned, bit-equal to its twin
+// nn_1_pruned_reference): for every query, the nearest valid target by
+// fma(dz, dz, fma(dy, dy, dx·dx)) (each step correctly rounded, the form
+// XLA's CPU backend gives pctpu), ties to the lowest index, and that d²;
+// (0, +inf) for a masked query, a query with no target, and beyond thr².
+//
+// What bounds it on the card: the bytes are small (≈ 29 B a point in, 8 B a
+// query out), and the operations are ≈ 9 flops a (query, target) pair over
+// the pairs the pruning cannot rule out — so the design is about visiting
+// few pairs, and about no single walk setting the time.  Four launches:
+//
+//   nn_prep_kernel, once per (target, mask): the sorted target packed as
+//     float4 with masked and padding points at +inf (they lose every strict
+//     compare, so the scan tests no validity), the box of each 32-point
+//     group and of each 1,024-point tile, in pctpu's (8, n) layout with its
+//     impossible box (min +3e38, max −3e38) for a group with no valid point.
+//     Box values are canonical: −0 is stored as +0.
+//   nn_seed_kernel, one warp per 32 consecutive sorted queries: the warp's
+//     box (shuffles), then the group with the least worst-case distance to
+//     it (max over the two boxes' corners), scanned for a first candidate
+//     per query.  It writes each query's 64-bit key (d² bits << 32 | index)
+//     and the warp's box and bound min(thr², max over its valid queries).
+//   nn_main_kernel over a 2-D grid (4 query warps × one target tile): a
+//     warp tests the tile's box, then each lane one of its 32 group boxes,
+//     against min(thr², the warp's current max best d²), read from the keys
+//     with relaxed atomic loads; it scans the groups that pass in ascending
+//     order with a strict <, tightening the bound after each, and merges its
+//     candidates with atomicMin on the keys.  Each work item is at most 32
+//     groups of 32 points, so the critical path is one item, not the busiest
+//     warp's walk over the target.  Groups are staged into the warp's own
+//     double-buffered shared-memory slices with cp.async; warps synchronise
+//     only with __syncwarp (no block-wide barrier, no block max per tile).
+//   nn_finish_kernel: each key to the contract's (index int32, d² f32).
+//
+// Exactness.  A group is skipped only when !(gap <= bound): the gap is the
+// box-to-box fma chain, monotone in each step, so no point of a skipped
+// group has a computed d² ≤ its gap; the bound is at least every valid
+// query's final best (a key only falls), so a skipped point can neither win
+// nor tie.  d² ≥ 0, so the key's bits order as unsigned integers and the min
+// breaks ties to the lowest index: the result does not depend on the order
+// in which the items run.  Indices are int32 throughout (T < 2³¹, and the
+// grid's y extent caps the tiles at 65,535).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kBig = 3e38f;
+constexpr int kGroup = 32;            // target points per group: one per lane
+constexpr int kTile = 1024;           // target points per tile: 32 groups
+constexpr int kWarps = 4;             // warps per block, seed and main launches
+constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned long long kPairsPerGroup = 32ull * kGroup;
+// the key of a query with no candidate yet: d² = +inf, index all ones
+constexpr unsigned long long kInitKey = (0x7f800000ull << 32) | 0xffffffffull;
+
+__device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
+
+__device__ __forceinline__ float sqdist(float qx, float qy, float qz, float tx,
+                                        float ty, float tz) {
+  const float dx = __fsub_rn(qx, tx);
+  const float dy = __fsub_rn(qy, ty);
+  const float dz = __fsub_rn(qz, tz);
+  return __fmaf_rn(dz, dz, __fmaf_rn(dy, dy, __fmul_rn(dx, dx)));
+}
+
+// one axis of the box gap: max(lo_t − hi_q, lo_q − hi_t, 0)
+__device__ __forceinline__ float gap1(float lo_q, float hi_q, float lo_t, float hi_t) {
+  return fmaxf(fmaxf(__fsub_rn(lo_t, hi_q), __fsub_rn(lo_q, hi_t)), 0.0f);
+}
+
+// squared box-to-box gap: q = (lo xyz, hi xyz) of the warp; the target box is
+// read from the (8, n) planes at column c
+__device__ __forceinline__ float box_gap(const float4& lo, const float4& hi,
+                                         const float* __restrict__ box, int n, int c) {
+  const float gx = gap1(lo.x, hi.x, box[c], box[3 * n + c]);
+  const float gy = gap1(lo.y, hi.y, box[n + c], box[4 * n + c]);
+  const float gz = gap1(lo.z, hi.z, box[2 * n + c], box[5 * n + c]);
+  return __fmaf_rn(gz, gz, __fmaf_rn(gy, gy, __fmul_rn(gx, gx)));
+}
+
+__device__ __forceinline__ float warp_min(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long make_key(float d, int j) {
+  return ((unsigned long long)__float_as_uint(d) << 32) | (uint32_t)j;
+}
+
+__device__ __forceinline__ unsigned long long load_relaxed(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];\n" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// this lane's query: coordinates and validity (false past nq)
+struct Query {
+  float x = 0.f, y = 0.f, z = 0.f;
+  bool valid = false;
+};
+
+__device__ __forceinline__ Query load_query(const float* __restrict__ q,
+                                            const uint8_t* __restrict__ qmask, int nq,
+                                            int qi) {
+  Query r;
+  if (qi < nq) {
+    r.x = q[3 * qi];
+    r.y = q[3 * qi + 1];
+    r.z = q[3 * qi + 2];
+    r.valid = qmask[qi] != 0;
+  }
+  return r;
+}
+
+// ascending scan of one staged group with a strict <: the lowest index wins
+// a tie inside the group, and groups are visited in ascending order
+__device__ __forceinline__ void scan_group(const float4* s, int base, const Query& me,
+                                           float& best, int& best_j) {
+#pragma unroll
+  for (int k = 0; k < kGroup; ++k) {
+    const float4 t = s[k];
+    const float d = sqdist(me.x, me.y, me.z, t.x, t.y, t.z);
+    if (d < best) {
+      best = d;
+      best_j = base + k;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kTile)
+nn_prep_kernel(const float* __restrict__ t, const uint8_t* __restrict__ tmask, int nt,
+               int n_tiles, float4* __restrict__ tp, float* __restrict__ gbox,
+               float* __restrict__ tbox) {
+  __shared__ float part[6][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ng = n_tiles * 32;
+  const int g = blockIdx.x * 32 + warp;
+  const int p = g * kGroup + lane;
+  float x = 0.f, y = 0.f, z = 0.f;
+  bool valid = false;
+  if (p < nt) {
+    x = t[3 * p];
+    y = t[3 * p + 1];
+    z = t[3 * p + 2];
+    valid = tmask[p] != 0;
+  }
+  const float inf = inf_f();
+  tp[p] = valid ? make_float4(x, y, z, 0.f) : make_float4(inf, inf, inf, 0.f);
+  // + 0.0f turns a −0 into +0: the box bits do not depend on which zero the
+  // min or max picked
+  float v[6] = {warp_min(valid ? x : kBig), warp_min(valid ? y : kBig),
+                warp_min(valid ? z : kBig), warp_max(valid ? x : -kBig),
+                warp_max(valid ? y : -kBig), warp_max(valid ? z : -kBig)};
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      v[k] = __fadd_rn(v[k], 0.0f);
+      gbox[k * ng + g] = v[k];
+      part[k][warp] = v[k];
+    }
+    gbox[6 * ng + g] = 0.f;
+    gbox[7 * ng + g] = 0.f;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    float w[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k)
+      w[k] = k < 3 ? warp_min(part[k][lane]) : warp_max(part[k][lane]);
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < 6; ++k) tbox[k * n_tiles + blockIdx.x] = w[k];
+      tbox[6 * n_tiles + blockIdx.x] = 0.f;
+      tbox[7 * n_tiles + blockIdx.x] = 0.f;
+    }
+  }
+}
+
+template <bool kCount>
+__global__ void __launch_bounds__(kWarps * 32)
+nn_seed_kernel(const float* __restrict__ q, const uint8_t* __restrict__ qmask, int nq,
+               const float4* __restrict__ tp, const float* __restrict__ gbox, int ng,
+               float thr2, unsigned long long* __restrict__ keys,
+               float4* __restrict__ wbox, unsigned long long* __restrict__ counter) {
+  __shared__ __align__(16) float4 stage[kWarps][kGroup];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int qw = blockIdx.x * kWarps + warp;
+  if (qw * 32 >= nq) return;  // whole warps only
+  const int qi = qw * 32 + lane;
+  const Query me = load_query(q, qmask, nq, qi);
+  const float inf = inf_f();
+  if (!__any_sync(kFull, me.valid)) {  // nothing to find: every item skips it
+    if (qi < nq) keys[qi] = kInitKey;
+    if (lane == 0) {
+      wbox[2 * qw] = make_float4(kBig, kBig, kBig, -inf);
+      wbox[2 * qw + 1] = make_float4(-kBig, -kBig, -kBig, 0.f);
+    }
+    return;
+  }
+  const float4 lo = make_float4(warp_min(me.valid ? me.x : kBig),
+                                warp_min(me.valid ? me.y : kBig),
+                                warp_min(me.valid ? me.z : kBig), 0.f);
+  const float4 hi = make_float4(warp_max(me.valid ? me.x : -kBig),
+                                warp_max(me.valid ? me.y : -kBig),
+                                warp_max(me.valid ? me.z : -kBig), 0.f);
+
+  // the group with the least worst-case distance to the warp's box: lane l
+  // takes groups l, l + 32, …; ties go to the lowest group
+  float best_m = inf;
+  int best_g = 0;
+  for (int g = lane; g < ng; g += 32) {
+    const float mx = fmaxf(fabsf(__fsub_rn(hi.x, gbox[g])), fabsf(__fsub_rn(gbox[3 * ng + g], lo.x)));
+    const float my = fmaxf(fabsf(__fsub_rn(hi.y, gbox[ng + g])),
+                           fabsf(__fsub_rn(gbox[4 * ng + g], lo.y)));
+    const float mz = fmaxf(fabsf(__fsub_rn(hi.z, gbox[2 * ng + g])),
+                           fabsf(__fsub_rn(gbox[5 * ng + g], lo.z)));
+    const float m = __fmaf_rn(mz, mz, __fmaf_rn(my, my, __fmul_rn(mx, mx)));
+    if (m < best_m) {
+      best_m = m;
+      best_g = g;
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    const float om = __shfl_xor_sync(kFull, best_m, o);
+    const int og = __shfl_xor_sync(kFull, best_g, o);
+    if (om < best_m || (om == best_m && og < best_g)) {
+      best_m = om;
+      best_g = og;
+    }
+  }
+
+  const int base = best_g * kGroup;
+  stage[warp][lane] = tp[base + lane];
+  __syncwarp();
+  float best = inf;
+  int best_j = 0;
+  scan_group(stage[warp], base, me, best, best_j);
+  if (kCount && lane == 0) atomicAdd(counter, kPairsPerGroup);
+  if (qi < nq) keys[qi] = me.valid && best < inf ? make_key(best, best_j) : kInitKey;
+  const float bound = fminf(thr2, warp_max(me.valid ? best : -inf));
+  if (lane == 0) {
+    wbox[2 * qw] = make_float4(lo.x, lo.y, lo.z, bound);
+    wbox[2 * qw + 1] = hi;
+  }
+}
+
+template <bool kCount>
+__global__ void __launch_bounds__(kWarps * 32)
+nn_main_kernel(const float* __restrict__ q, const uint8_t* __restrict__ qmask, int nq,
+               const float4* __restrict__ tp, const float* __restrict__ gbox, int ng,
+               const float* __restrict__ tbox, int n_tiles, float thr2,
+               unsigned long long* __restrict__ keys, const float4* __restrict__ wbox,
+               unsigned long long* __restrict__ counter) {
+  __shared__ __align__(16) float4 stage[kWarps][2][kGroup];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int qw = blockIdx.x * kWarps + warp;
+  if (qw * 32 >= nq) return;
+  const int tile = blockIdx.y;
+  const float4 lo = wbox[2 * qw], hi = wbox[2 * qw + 1];
+  const float tgap = box_gap(lo, hi, tbox, n_tiles, tile);
+  if (!(tgap <= lo.w)) return;  // the seed's bound: no later bound is larger
+
+  // the live bound: the warp's current best distances, from the keys
+  const int qi = qw * 32 + lane;
+  const Query me = load_query(q, qmask, nq, qi);
+  const float inf = inf_f();
+  const unsigned long long key = qi < nq ? load_relaxed(keys + qi) : kInitKey;
+  const float kd = __uint_as_float((uint32_t)(key >> 32));
+  float bound = fminf(thr2, warp_max(me.valid ? kd : -inf));
+  if (!(tgap <= bound)) return;
+
+  // lane l tests group l of the tile
+  const float ggap = box_gap(lo, hi, gbox, ng, tile * 32 + lane);
+  unsigned todo = __ballot_sync(kFull, ggap <= bound);
+  if (!todo) return;
+
+  float4(*buf)[kGroup] = stage[warp];
+  const float4* tile_pts = tp + tile * kTile;
+  float best = inf;
+  int best_j = 0;
+  int cur = 0;
+  int gl = __ffs(todo) - 1;
+  todo &= todo - 1;
+  cp_async16(&buf[0][lane], tile_pts + gl * kGroup + lane);
+  cp_async_commit();
+  while (true) {
+    int gn = -1;
+    if (todo) {  // prefetch the next group into the other slice
+      gn = __ffs(todo) - 1;
+      todo &= todo - 1;
+      cp_async16(&buf[cur ^ 1][lane], tile_pts + gn * kGroup + lane);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();  // every lane's copy of this group has landed
+    // the group may have fallen behind the tightened bound meanwhile
+    if (__shfl_sync(kFull, ggap, gl) <= bound) {
+      scan_group(buf[cur], tile * kTile + gl * kGroup, me, best, best_j);
+      if (kCount && lane == 0) atomicAdd(counter, kPairsPerGroup);
+      bound = fminf(bound, warp_max(me.valid ? fminf(kd, best) : -inf));
+    }
+    if (gn < 0) break;
+    __syncwarp();  // every lane has read this slice before it is refilled
+    gl = gn;
+    cur ^= 1;
+  }
+  if (me.valid && best < inf) {
+    const unsigned long long mine = make_key(best, best_j);
+    if (mine < key) atomicMin(keys + qi, mine);
+  }
+}
+
+__global__ void nn_finish_kernel(const uint8_t* __restrict__ qmask, int nq,
+                                 const unsigned long long* __restrict__ keys, float thr2,
+                                 int32_t* __restrict__ out_idx, float* __restrict__ out_d2) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= nq) return;
+  const unsigned long long key = keys[i];
+  const float d = __uint_as_float((uint32_t)(key >> 32));
+  // a key's d² came from sqdist on the winner itself: it is the twin's
+  // re-derived d², bit for bit; the init key's +inf fails the test
+  const bool ok = qmask[i] != 0 && d <= thr2;
+  out_idx[i] = ok ? (int32_t)(uint32_t)key : 0;
+  out_d2[i] = ok ? d : inf_f();
+}
+
+template <bool kCount>
+int launch_pass(const float* q, const uint8_t* qmask, int nq, const float4* tp,
+                const float* gbox, const float* tbox, int n_tiles, float thr2,
+                void* scratch, int32_t* out_idx, float* out_d2,
+                unsigned long long* counter, cudaStream_t stream) {
+  const int n_qw = (nq + 31) / 32;
+  const int blocks = (n_qw + kWarps - 1) / kWarps;
+  // scratch: the warps' boxes (two float4 each), then one key per query
+  float4* wbox = static_cast<float4*>(scratch);
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(wbox + 2 * n_qw);
+  const int ng = n_tiles * 32;
+  nn_seed_kernel<kCount><<<blocks, kWarps * 32, 0, stream>>>(q, qmask, nq, tp, gbox, ng,
+                                                             thr2, keys, wbox, counter);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  nn_main_kernel<kCount><<<dim3(blocks, n_tiles), kWarps * 32, 0, stream>>>(
+      q, qmask, nq, tp, gbox, ng, tbox, n_tiles, thr2, keys, wbox, counter);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  nn_finish_kernel<<<(nq + 255) / 256, 256, 0, stream>>>(qmask, nq, keys, thr2, out_idx,
+                                                         out_d2);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each launcher returns the first cudaGetLastError() after its launches: a
+// launch the card refuses never runs, and a later synchronize would not
+// report it.
+
+// The prep kernel: tp (n_tiles·1024 float4), gbox (8, n_tiles·32) and tbox
+// (8, n_tiles) f32, n_tiles = ⌈nt / 1024⌉ ≤ 65,535.
+int pctpu_nn_prep(const float* t, const uint8_t* tmask, int64_t nt, void* tp, float* gbox,
+                  float* tbox, void* stream) {
+  if (nt <= 0 || (nt + kTile - 1) / kTile > 65535) return (int)cudaErrorInvalidValue;
+  const int n_tiles = (int)((nt + kTile - 1) / kTile);
+  nn_prep_kernel<<<n_tiles, kTile, 0, (cudaStream_t)stream>>>(
+      t, tmask, (int)nt, n_tiles, static_cast<float4*>(tp), gbox, tbox);
+  return (int)cudaGetLastError();
+}
+
+// One pass on a prepared target: seed, main and finish.  scratch holds
+// 4·⌈nq / 32⌉ + nq 64-bit words.  With a counter, the counting instance
+// also adds 1,024 pairs to it for every (warp, group) scanned.
+int pctpu_nn_pruned(const float* q, const uint8_t* qmask, int64_t nq, const void* tp,
+                    const float* gbox, const float* tbox, int64_t n_tiles, float thr2,
+                    void* scratch, int32_t* out_idx, float* out_d2, void* counter,
+                    void* stream) {
+  if (nq <= 0 || nq > 0x7fffff00ll || n_tiles <= 0 || n_tiles > 65535)
+    return (int)cudaErrorInvalidValue;
+  const float4* pts = static_cast<const float4*>(tp);
+  if (counter)
+    return launch_pass<true>(q, qmask, (int)nq, pts, gbox, tbox, (int)n_tiles, thr2,
+                             scratch, out_idx, out_d2,
+                             static_cast<unsigned long long*>(counter),
+                             (cudaStream_t)stream);
+  return launch_pass<false>(q, qmask, (int)nq, pts, gbox, tbox, (int)n_tiles, thr2, scratch,
+                            out_idx, out_d2, nullptr, (cudaStream_t)stream);
+}
+
+}  // extern "C"

@@ -14,7 +14,8 @@ at 0.2 m through the port's ``_stage_voxel_full``, cut to the 49,152 bucket
 and Morton-sorted.  The queries are not moved toward the target.
 
 Runs, each at thr 1 m (ICP correspondences) and with no threshold (fitness):
-the production anchor ``nn_1_pruned`` (128, 1024); every mode at
+the production anchor ``nn_1_pruned`` (``csrc/nn_pruned_warp.cu``; its
+``kernel_ms`` is a pass on a target prepared beforehand); every mode at
 (256, 1024); "prod" at every shape of ``cuda_knn.VARIANT_TILES`` (the
 script's sweep plus (128, 1024) and (256, 1024)).  Before it is timed, each
 variant is held against its plain twin on the card and must agree in every
@@ -192,11 +193,16 @@ def run(argv: list[str] | None = None) -> dict:
             acc += idx.sum() + torch.where(torch.isfinite(d2), d2, 0.0).sum().to(torch.int64)
 
         ms = best_of_3(whole)
-        # the kernel alone: boxes and outputs built beforehand (bf16 takes the
-        # rounded points, as its wrapper passes them)
+        # the kernel alone: boxes (the prepared target) and outputs built
+        # beforehand (bf16 takes the rounded points, as its wrapper passes them)
         rnd = cuda_knn._bf16 if mode == "bf16" else (lambda x: x)
-        launchers = [cuda_knn._pruned_launcher(rnd(x), qm, rnd(t), tm, cuda_knn._thr2(md),
-                                               tq, tt, mode)[0] for x in qs]
+        thr2 = cuda_knn._thr2(md)
+        if mode is None:
+            prepared = cuda_knn.prepare_target(t, tm)
+            launchers = [cuda_knn._pass_launcher(x, qm, prepared, thr2)[0] for x in qs]
+        else:
+            launchers = [cuda_knn._pruned_launcher(rnd(x), qm, rnd(t), tm, thr2, tq, tt,
+                                                   mode)[0] for x in qs]
         kernel_ms = best_of_3(lambda k: launchers[k]())
         line = {"variant": label, "mode": mode or "prod_op", "tq": tq, "tt": tt,
                 "pass": "thr" if md is not None else "fitness", "ms_per_pass": ms,
@@ -209,8 +215,9 @@ def run(argv: list[str] | None = None) -> dict:
 
     passes = ((thr_m, "thr", "thr=1m"), (None, "fit", "fitness"))
     for md, tag, name in passes:
-        measure(f"prod_op {name} ({cuda_knn.TQ},{cuda_knn.TT})", f"prod_op_{tag}",
-                cuda_knn.TQ, cuda_knn.TT, None, md)
+        # the warp design: 32 queries a warp against 1,024-point tiles
+        measure(f"prod_op {name} ({cuda_knn.GROUP},{cuda_knn.TT})", f"prod_op_{tag}",
+                cuda_knn.GROUP, cuda_knn.TT, None, md)
     for mode in modes:
         for md, tag, name in passes:
             measure(f"{mode} {name} (256,1024)", f"{mode}_{tag}", 256, 1024, mode, md)

@@ -1,7 +1,8 @@
 """Scenes for the card's measurements, in numpy: the registration bench
 scene — the port's copy of ``bench.py``'s ``registration_scene``
 (bench.py:968-999), which builds pctpu clouds and so cannot be imported
-here — and a ray-cast LiDAR drive for batch_multi_bev_gen."""
+here — the registration CLIs' tree of moved copies of it, and a ray-cast
+LiDAR drive for batch_multi_bev_gen."""
 
 from __future__ import annotations
 
@@ -35,6 +36,49 @@ def moved_copy(xyz: np.ndarray) -> np.ndarray:
     rot = np.array([[np.cos(th), -np.sin(th), 0], [np.sin(th), np.cos(th), 0],
                     [0, 0, 1]], np.float32)
     return xyz @ rot.T + np.array([1.5, -2.0, 0], np.float32)
+
+
+def pose(yaw_deg: float, tx: float, ty: float) -> np.ndarray:
+    """A 4×4 f64 pose: a turn of ``yaw_deg`` about z, then (tx, ty, 0)."""
+    th = np.radians(yaw_deg)
+    m = np.eye(4)
+    m[:2, :2] = [[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]]
+    m[:2, 3] = tx, ty
+    return m
+
+
+# the registration tree: the poses of its four clouds, and its five pairs
+# (query, match, degrees by which the yaw guess misses the truth)
+TREE_POSES = (pose(0.0, 0.0, 0.0), pose(17.0, 1.5, -2.0), pose(-25.0, -3.0, 1.0),
+              pose(178.0, 2.0, 2.5))
+TREE_PAIRS = ((0, 1, 3.0), (1, 2, -2.0), (2, 0, 4.0), (0, 3, -3.0), (3, 1, 2.5))
+
+
+def registration_tree(root: str, seed: int = 3) -> None:
+    """Write the input tree of both registration CLIs under ``root``: the
+    bench scene moved to each of ``TREE_POSES`` with 1 cm noise
+    (``clouds/000000.pcd`` ...), ``match_result.txt`` with ``TREE_PAIRS``
+    and their yaw guesses, and ``warmup.txt`` with the first pair alone."""
+    from pctpu_torch import make_cloud
+    from pctpu_torch.io.pcd import save_cloud_pcd
+
+    rng = np.random.default_rng(seed)
+    xyz, lab = registration_scene()
+    os.makedirs(os.path.join(root, "clouds"))
+    for k, m in enumerate(TREE_POSES):
+        moved = xyz @ m[:3, :3].T.astype(np.float32) + m[:3, 3].astype(np.float32)
+        moved = moved + rng.normal(0, 0.01, moved.shape).astype(np.float32)
+        save_cloud_pcd(os.path.join(root, "clouds", f"{k:06d}.pcd"),
+                       make_cloud(moved, label=lab))
+
+    def guess(q: int, m: int, off: float) -> str:
+        r = TREE_POSES[m] @ np.linalg.inv(TREE_POSES[q])
+        return f"{q} {m} {np.degrees(np.arctan2(r[1, 0], r[0, 0])) + off:.3f}\n"
+
+    with open(os.path.join(root, "match_result.txt"), "w") as f:
+        f.writelines(guess(*p) for p in TREE_PAIRS)
+    with open(os.path.join(root, "warmup.txt"), "w") as f:
+        f.write(guess(*TREE_PAIRS[0]))
 
 
 def _hdl64e_elevations(n_scan: int) -> np.ndarray:

@@ -26,7 +26,7 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / f for f in (
-    "nn_pruned.cu", "segment_sum.cu", "nn_fused.cu", "bev_raster.cu"))
+    "nn_pruned_warp.cu", "nn_pruned.cu", "segment_sum.cu", "nn_fused.cu", "bev_raster.cu"))
 BUILD_DIR = _PKG.parent / "build" / "pctpu_torch"
 
 # the (TQ, TT, MODE) instances of csrc/nn_pruned.cu's kernel template that
@@ -45,8 +45,8 @@ NVCC_FLAGS = (
 )
 
 launch_counts: dict[str, int] = {
-    "nn_pruned": 0, "segment_sum4": 0, "nn_fused": 0, "nn_variant": 0,
-    "ground_sums": 0, "bev_raster": 0,
+    "nn_prep": 0, "nn_pruned": 0, "nn_pruned_count": 0, "segment_sum4": 0, "nn_fused": 0,
+    "nn_variant": 0, "ground_sums": 0, "bev_raster": 0,
 }
 
 _lib: ctypes.CDLL | None = None
@@ -124,8 +124,10 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i64 = ctypes.c_void_p, ctypes.c_int64
+        lib.pctpu_nn_prep.argtypes = [p, p, i64, p, p, p, p]
+        lib.pctpu_nn_prep.restype = ctypes.c_int
         lib.pctpu_nn_pruned.argtypes = [
-            p, p, i64, p, p, i64, p, i64, p, i64, ctypes.c_float, p, p, p,
+            p, p, i64, p, p, p, i64, ctypes.c_float, p, p, p, p, p,
         ]
         lib.pctpu_nn_pruned.restype = ctypes.c_int
         lib.pctpu_nn_variant.argtypes = [

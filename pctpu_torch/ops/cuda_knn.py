@@ -2,12 +2,17 @@
 ``pctpu/ops/pallas_knn.py`` and of the argmin experiment
 ``scripts/exp_nn_argmin.py``.
 
-``nn_1_pruned`` launches the CUDA kernel ``csrc/nn_pruned.cu`` at
-(TQ, TT) = (128, 1024) (it replaces the TPU kernels
-``_make_nn_pruned_loop_kernel`` and ``_make_nn_pruned_kernel``) for CUDA
-tensors, and runs its plain torch twin ``nn_1_pruned_reference`` for CPU
-tensors.  The Morton sort key, the payload sort and the tile bounding boxes
-are torch ops, as in pctpu they are XLA ops around the kernel.
+``nn_1_pruned`` launches the CUDA kernels of ``csrc/nn_pruned_warp.cu``
+(they replace the TPU kernels ``_make_nn_pruned_loop_kernel`` and
+``_make_nn_pruned_kernel``) for CUDA tensors, and runs its plain torch twin
+``nn_1_pruned_reference`` for CPU tensors.  ``prepare_target`` packs a
+target and its mask once — float4 points with masked ones at +inf, and the
+boxes of each 32-point group and 1,024-point tile — so that a caller
+searching one target many times (``icp``) pays for it once; a pass on a
+prepared target is three launches (seed, main, finish) and creates no
+tensor on the card but its outputs and scratch.  The Morton sort key and
+the payload sort are torch ops, as in pctpu they are XLA ops around the
+kernel.
 
 Contract (both paths, identical results): for every query, the index of the
 nearest valid target by the squared distance fma(dz, dz, fma(dy, dy, dx·dx))
@@ -18,9 +23,11 @@ instead compares |t|² − 2q·t scores, so its winner can differ inside the
 score-tie window ~4·|p|²·2⁻²³ (pallas_knn.py:355-365), and beyond the
 threshold it returns +inf or a finite d² > thr²; ICP rejects both alike.
 
-``nn_1_pruned_variant`` launches the other instances of the same template
-(the port of ``exp_nn_argmin.py``'s ``nn_variant``): a tile shape from
-``VARIANT_TILES`` and an argmin body, named as the script names its modes:
+``nn_1_pruned_variant`` launches the instances of the block-wide template
+``csrc/nn_pruned.cu`` (the port of ``exp_nn_argmin.py``'s ``nn_variant``;
+its (128, 1024, "prod") instance is the earlier Hopper form of
+``nn_1_pruned``): a tile shape from ``VARIANT_TILES`` and an argmin body,
+named as the script names its modes:
 
   ==============  ==========================================  ==================
   script mode     Hopper form (``csrc/nn_pruned.cu``)         twin
@@ -50,17 +57,23 @@ returns the winner's d² re-derived from the f32 coordinates.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from pctpu_torch.ops import _cuda
 from pctpu_torch.ops.knn import _fma_f32, sq_dist
 
-# the tile shape of nn_1_pruned (the <128, 1024, kProd> instance of
-# csrc/nn_pruned.cu)
-TQ = 128
+# nn_1_pruned's target group and tile (csrc/nn_pruned_warp.cu's kGroup,
+# kTile); TQ is the query tile of the earlier form, the (TQ, TT, "prod")
+# variant
+GROUP = 32
 TT = 1024
+TQ = 128
 _BIG = 3e38
+# the main launch's grid holds one y row per target tile
+_MAX_TARGETS = 65535 * TT
 
 # nn_1_pruned_variant: the script's mode names and the kernel's MODE
 MODES = {"prod": 0, "explicit2": 1, "onehot_exact": 2, "onehot_mxu": 2, "bf16": 3}
@@ -107,13 +120,62 @@ def _tile_bboxes(xyz: torch.Tensor, mask: torch.Tensor, tile: int) -> torch.Tens
     nt = n // tile
     x = xyz.reshape(nt, tile, 3)
     m = mask.reshape(nt, tile, 1)
-    big = torch.tensor(_BIG, dtype=torch.float32, device=xyz.device)
-    mins = torch.where(m, x, big).amin(dim=1)
-    maxs = torch.where(m, x, -big).amax(dim=1)
+    mins = torch.where(m, x, _BIG).amin(dim=1)
+    maxs = torch.where(m, x, -_BIG).amax(dim=1)
     out = torch.zeros((8, nt), dtype=torch.float32, device=xyz.device)
     out[0:3] = mins.T
     out[3:6] = maxs.T
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class PreparedTarget:
+    """A target and its mask as :func:`nn_1_pruned`'s kernels read them:
+    ``packed`` (⌈n / 1024⌉·1024, 4) f32 — x, y, z, 0 in the target's order,
+    +inf coordinates for masked and padding points; ``group_box`` and
+    ``tile_box``, (8, groups) and (8, tiles) f32 in ``_tile_bboxes``' layout
+    over 32- and 1,024-point runs, with −0 stored as +0; ``n`` the target's
+    length."""
+
+    packed: torch.Tensor
+    group_box: torch.Tensor
+    tile_box: torch.Tensor
+    n: int
+
+
+def prepare_target_reference(target: torch.Tensor, target_mask: torch.Tensor) -> PreparedTarget:
+    """Plain torch twin of the prep kernel (``nn_prep_kernel``)."""
+    xyz, m = _pad_rows(target, TT), _pad_rows(target_mask, TT)
+    pts = torch.where(m[:, None], xyz, float("inf"))
+    packed = torch.cat([pts, torch.zeros_like(pts[:, :1])], dim=1)
+    # + 0.0 turns a −0 into +0, as the kernel does
+    return PreparedTarget(packed, _tile_bboxes(xyz, m, GROUP) + 0.0,
+                          _tile_bboxes(xyz, m, TT) + 0.0, target.shape[0])
+
+
+def prepare_target(target: torch.Tensor, target_mask: torch.Tensor) -> PreparedTarget:
+    """Pack ``target`` (T, 3) f32 and ``target_mask`` (T,) bool for
+    :func:`nn_1_pruned`: CUDA tensors launch the prep kernel (or raise), CPU
+    tensors run :func:`prepare_target_reference`."""
+    dev = target.device
+    if dev.type == "cpu":
+        return prepare_target_reference(target, target_mask)
+    if dev.type != "cuda":
+        raise ValueError(f"prepare_target: unsupported device {dev}")
+    n = target.shape[0]
+    _cuda.require(target, "target", torch.float32, (-1, 3), dev)
+    _cuda.require(target_mask, "target_mask", torch.bool, (n,), dev)
+    if not 0 < n <= _MAX_TARGETS:
+        raise ValueError(f"prepare_target: unsupported size T={n}")
+    tiles = -(-n // TT)
+    packed = torch.empty((tiles * TT, 4), dtype=torch.float32, device=dev)
+    group_box = torch.empty((8, tiles * TT // GROUP), dtype=torch.float32, device=dev)
+    tile_box = torch.empty((8, tiles), dtype=torch.float32, device=dev)
+    rc = _cuda.library().pctpu_nn_prep(
+        target.data_ptr(), target_mask.data_ptr(), n, packed.data_ptr(),
+        group_box.data_ptr(), tile_box.data_ptr(), _cuda.stream_ptr(dev))
+    _cuda.check(rc, "nn_prep")
+    return PreparedTarget(packed, group_box, tile_box, n)
 
 
 def _pad_rows(x: torch.Tensor, multiple: int) -> torch.Tensor:
@@ -164,70 +226,133 @@ def nn_1_pruned_reference(
                    torch.isfinite(best), _thr2(max_distance))
 
 
-def _pruned_launcher(query, query_mask, target, target_mask, thr2, tq, tt, mode):
-    """Validate CUDA inputs for one instance of ``csrc/nn_pruned.cu`` (``mode``
-    None: K1's ``pctpu_nn_pruned``), build the tile boxes and the outputs.
-    Returns (launch, val, idx): each ``launch()`` runs the kernel into the
-    raw outputs (best d², index) and counts the launch."""
+def _pass_launcher(query, query_mask, prepared: PreparedTarget, thr2, counter=None):
+    """Validate CUDA queries for a pass of ``csrc/nn_pruned_warp.cu`` on a
+    prepared target and allocate its outputs and scratch.  Returns (launch,
+    idx, d2): each ``launch()`` runs the pass (seed, main and finish) into
+    the outputs and counts it once.  With ``counter`` (an int64 CUDA
+    tensor) the counting instance runs and adds the pairs it visited."""
     dev = query.device
     if dev.type != "cuda":
-        raise ValueError(f"the nn_pruned kernel needs CUDA tensors, got {dev}")
+        raise ValueError(f"the nn_pruned kernels need CUDA tensors, got {dev}")
+    nq = query.shape[0]
+    _cuda.require(query, "query", torch.float32, (-1, 3), dev)
+    _cuda.require(query_mask, "query_mask", torch.bool, (nq,), dev)
+    tiles = prepared.tile_box.shape[1]
+    _cuda.require(prepared.packed, "prepared.packed", torch.float32, (tiles * TT, 4), dev)
+    _cuda.require(prepared.group_box, "prepared.group_box", torch.float32,
+                  (8, tiles * TT // GROUP), dev)
+    _cuda.require(prepared.tile_box, "prepared.tile_box", torch.float32, (8, tiles), dev)
+    if not 0 < nq < 2**31 - 256:
+        raise ValueError(f"nn_pruned: unsupported size Q={nq}")
+    idx = torch.empty((nq,), dtype=torch.int32, device=dev)
+    d2 = torch.empty((nq,), dtype=torch.float32, device=dev)
+    # the query warps' boxes (four words each), then one 64-bit key a query
+    scratch = torch.empty((4 * -(-nq // 32) + nq,), dtype=torch.int64, device=dev)
+    fn = _cuda.library().pctpu_nn_pruned
+    name = "nn_pruned" if counter is None else "nn_pruned_count"
+    count_ptr = None if counter is None else counter.data_ptr()
+
+    def launch():
+        rc = fn(query.data_ptr(), query_mask.data_ptr(), nq, prepared.packed.data_ptr(),
+                prepared.group_box.data_ptr(), prepared.tile_box.data_ptr(), tiles, thr2,
+                scratch.data_ptr(), idx.data_ptr(), d2.data_ptr(), count_ptr,
+                _cuda.stream_ptr(dev))
+        _cuda.check(rc, name)
+
+    return launch, idx, d2
+
+
+def nn_1_pruned(
+    query: torch.Tensor,
+    query_mask: torch.Tensor,
+    target: torch.Tensor | None = None,
+    target_mask: torch.Tensor | None = None,
+    max_distance: float | None = None,
+    prepared: PreparedTarget | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """1-NN with bounding-box pruning: (index (Q,) int32, d² (Q,) f32).
+
+    Both clouds should be spatially sorted (:func:`spatial_sort_payload`)
+    for the pruning to bite; the result is exact either way.  The target is
+    ``target`` and ``target_mask``, or ``prepared`` alone:
+    ``prepare_target(target, target_mask)``, made once for many passes, so
+    that the mask the pass uses is the one it was prepared with.  CUDA
+    tensors launch the kernels (or raise); CPU tensors run the plain twin,
+    on a prepared target over its packed points (a masked point is +inf)."""
+    if prepared is None:
+        if target is None or target_mask is None:
+            raise ValueError("nn_1_pruned: give target and target_mask, or prepared")
+        if query.device.type == "cpu":
+            return nn_1_pruned_reference(query, query_mask, target, target_mask,
+                                         max_distance)
+        prepared = prepare_target(target, target_mask)
+    elif target is not None or target_mask is not None:
+        raise ValueError("nn_1_pruned: a prepared target takes the place of target and "
+                         "target_mask; give one or the other")
+    if prepared.packed.device != query.device:
+        raise ValueError(f"nn_1_pruned: prepared target on {prepared.packed.device}, "
+                         f"queries on {query.device}")
+    if query.device.type == "cpu":
+        pts = prepared.packed[:prepared.n, :3]
+        return nn_1_pruned_reference(query, query_mask, pts, torch.isfinite(pts).all(dim=1),
+                                     max_distance)
+    launch, idx, d2 = _pass_launcher(query, query_mask, prepared, _thr2(max_distance))
+    launch()
+    return idx, d2
+
+
+def pairs_visited(query, query_mask, prepared: PreparedTarget, max_distance=None) -> int:
+    """The (query, target) pairs one pass of :func:`nn_1_pruned` scans on the
+    card — 1,024 for every (32-query warp, 32-point group) it visits — from
+    the kernels' counting instance (synchronises)."""
+    counter = torch.zeros((1,), dtype=torch.int64, device=query.device)
+    _pass_launcher(query, query_mask, prepared, _thr2(max_distance), counter)[0]()
+    return int(counter.item())
+
+
+def _pruned_launcher(query, query_mask, target, target_mask, thr2, tq, tt, mode):
+    """Validate CUDA inputs for one instance of ``csrc/nn_pruned.cu``, build
+    the tile boxes and the outputs.  Returns (launch, val, idx): each
+    ``launch()`` runs the kernel into the raw outputs (best d², index) and
+    counts the launch."""
+    dev = query.device
+    if dev.type != "cuda":
+        raise ValueError(f"the nn_variant kernel needs CUDA tensors, got {dev}")
     nq, nt = query.shape[0], target.shape[0]
     _cuda.require(query, "query", torch.float32, (-1, 3), dev)
     _cuda.require(query_mask, "query_mask", torch.bool, (nq,), dev)
     _cuda.require(target, "target", torch.float32, (-1, 3), dev)
     _cuda.require(target_mask, "target_mask", torch.bool, (nt,), dev)
     if nq == 0 or nt == 0 or nt >= 2**31:
-        raise ValueError(f"nn_pruned: unsupported sizes Q={nq}, T={nt}")
+        raise ValueError(f"nn_variant: unsupported sizes Q={nq}, T={nt}")
     q_box = _tile_bboxes(_pad_rows(query, tq), _pad_rows(query_mask, tq), tq)
     t_box = _tile_bboxes(_pad_rows(target, tt), _pad_rows(target_mask, tt), tt)
     val = torch.empty((nq,), dtype=torch.float32, device=dev)
     idx = torch.empty((nq,), dtype=torch.int32, device=dev)
-    lib = _cuda.library()
-    fn, name, extra = ((lib.pctpu_nn_pruned, "nn_pruned", ()) if mode is None else
-                       (lib.pctpu_nn_variant, "nn_variant", (MODES[mode],)))
+    fn = _cuda.library().pctpu_nn_variant
 
     def launch():
         rc = fn(query.data_ptr(), query_mask.data_ptr(), nq,
                 target.data_ptr(), target_mask.data_ptr(), nt,
-                q_box.data_ptr(), tq, t_box.data_ptr(), tt, *extra, thr2,
+                q_box.data_ptr(), tq, t_box.data_ptr(), tt, MODES[mode], thr2,
                 val.data_ptr(), idx.data_ptr(), _cuda.stream_ptr(dev))
-        _cuda.check(rc, name)
+        _cuda.check(rc, "nn_variant")
 
     return launch, val, idx
 
 
 def _pruned(query, query_mask, target, target_mask, max_distance, tq, tt, mode):
-    """The CUDA path of :func:`nn_1_pruned` (``mode`` None) and of
-    :func:`nn_1_pruned_variant`: launch, then the shared epilogue.  For
-    ``bf16`` the kernel gets the rounded points, so its boxes and the
-    threshold test use what it compares, and the winners' d² come from the
-    f32 points."""
+    """The CUDA path of :func:`nn_1_pruned_variant`: launch, then the shared
+    epilogue.  For ``bf16`` the kernel gets the rounded points, so its boxes
+    and the threshold test use what it compares, and the winners' d² come
+    from the f32 points."""
     thr2 = _thr2(max_distance)
     q, t = (_bf16(query), _bf16(target)) if mode == "bf16" else (query, target)
     launch, val, idx = _pruned_launcher(q, query_mask, t, target_mask, thr2, tq, tt, mode)
     launch()
     idx, d2 = _finish(q, query_mask, t, target_mask, idx, val < _BIG / 2, thr2)
     return _rescore(query, target, idx, d2) if mode == "bf16" else (idx, d2)
-
-
-def nn_1_pruned(
-    query: torch.Tensor,
-    query_mask: torch.Tensor,
-    target: torch.Tensor,
-    target_mask: torch.Tensor,
-    max_distance: float | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """1-NN with bounding-box pruning: (index (Q,) int32, d² (Q,) f32).
-
-    Both clouds should be spatially sorted (:func:`spatial_sort_payload`)
-    for the pruning to bite; the result is exact either way.  CUDA tensors
-    launch the kernel (or raise); CPU tensors run the plain twin."""
-    dev = query.device
-    if dev.type == "cpu":
-        return nn_1_pruned_reference(query, query_mask, target, target_mask,
-                                     max_distance)
-    return _pruned(query, query_mask, target, target_mask, max_distance, TQ, TT, None)
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:

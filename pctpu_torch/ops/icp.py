@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from pctpu_torch.config import IcpConfig
-from pctpu_torch.ops.cuda_knn import nn_1_pruned, spatial_sort_payload
+from pctpu_torch.ops.cuda_knn import nn_1_pruned, prepare_target, spatial_sort_payload
 from pctpu_torch.ops.knn import nn_1
 from pctpu_torch.ops.transform import transform_xyz
 
@@ -133,8 +133,8 @@ def icp(
 
     if nn_impl == "pruned":
         # sort once: pruning needs tile locality, and a rigid transform keeps
-        # it, so the source order holds across iterations (the kernel's
-        # wrapper recomputes the boxes from the transformed points every call)
+        # it, so the source order holds across iterations (the kernels take
+        # the moving source's boxes from the transformed points every pass)
         if tgt_normals is not None:
             nm = normal_mask if normal_mask is not None else torch.ones_like(tgt_mask)
             tgt_xyz, tgt_mask, tgt_normals, normal_mask = spatial_sort_payload(
@@ -144,22 +144,28 @@ def icp(
             tgt_xyz, tgt_mask = spatial_sort_payload(tgt_xyz, tgt_mask)
         src_xyz, src_mask = spatial_sort_payload(src_xyz, src_mask)
 
+    corr_tgt_mask = tgt_mask
+    if tgt_normals is not None and normal_mask is not None:
+        corr_tgt_mask = tgt_mask & normal_mask
+
+    if nn_impl == "pruned":
+        # the target never moves inside the loop: pack it and its boxes once
+        # for each of the two masks
+        corr_prep = prepare_target(tgt_xyz, corr_tgt_mask)
+        fit_prep = corr_prep if corr_tgt_mask is tgt_mask else prepare_target(tgt_xyz, tgt_mask)
+
         def nn_corr(q, qm, tmask):
-            return nn_1_pruned(q, qm, tgt_xyz, tmask,
+            return nn_1_pruned(q, qm, prepared=corr_prep,
                                max_distance=cfg.max_correspondence_distance)
 
         def nn_fit(q, qm, tmask):
-            return nn_1_pruned(q, qm, tgt_xyz, tmask, max_distance=None)
+            return nn_1_pruned(q, qm, prepared=fit_prep, max_distance=None)
     else:
 
         def nn_corr(q, qm, tmask):
             return nn_1(q, qm, tgt_xyz, tmask, tile=nn_tile)
 
         nn_fit = nn_corr
-
-    corr_tgt_mask = tgt_mask
-    if tgt_normals is not None and normal_mask is not None:
-        corr_tgt_mask = tgt_mask & normal_mask
 
     eye4 = torch.eye(4, dtype=torch.float32, device=dev)
     final_t = guess.to(device=dev, dtype=torch.float32)

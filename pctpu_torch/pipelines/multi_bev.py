@@ -105,7 +105,7 @@ def run_multi_bev(
     resume: bool = False,
     write_pngs: bool = True,
     compat: str = "bitexact",
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> MultiBevOutputs:
     """Run the full batch_multi_bev_gen pipeline over a keyframe tree on
     ``device``.  ``compat="tolerance"`` sums the ground sectors with one

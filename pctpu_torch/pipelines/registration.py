@@ -298,7 +298,7 @@ def run_batch_top_part_registration(
     capacity: int | None = None,
     flat_cap: int = 32768,
     resume: bool = False,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> list[PairReport]:
     """The batch evaluator, one pair after another on ``device``.  Returns
     per-pair reports; writes the precision report (same bytes as pctpu's)
@@ -386,7 +386,7 @@ def run_batch_whole_registration(
     report_path: str = "./icp_precision_report_3d_icp_directly.txt",
     capacity: int | None = None,
     resume: bool = False,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> tuple[int, int]:
     """The ablation driver, one pair after another on ``device``: direct
     3-D ICP from the yaw guess on the whole downsampled clouds, at the full

@@ -1,6 +1,6 @@
 """pctpu_torch's CUDA kernels against their plain torch twins, on the card.
 
-One test per kernel, each marked ``cuda``: they skip where there is no
+Tests per kernel, each marked ``cuda``: they skip where there is no
 NVIDIA card (a CUDA kernel has no CPU mode; the twins are held against
 pctpu by the other ``test_torch_*`` files).  This file imports neither jax
 nor pctpu, so it runs on the card's machine, which has no JAX:
@@ -50,6 +50,76 @@ def test_nn_pruned(dev):
     for md in (2.0, None):
         assert _bit_equal(tk.nn_1_pruned(*args, max_distance=md),
                           tk.nn_1_pruned_reference(*args, max_distance=md)), md
+
+
+def _ties(dev):
+    """Equal distances across groups and tiles: duplicates of one point at
+    indices 5, 40 (another group) and 1500 (another tile), its mirror image
+    at 1200."""
+    t = torch.full((2100, 3), 50.0)
+    t[5] = t[40] = t[1500] = torch.tensor([1.0, 2.0, 3.0])
+    t[1200] = torch.tensor([-1.0, -2.0, -3.0])
+    q = torch.zeros((37, 3))
+    q[1] = torch.tensor([1.0, 2.0, 3.5])
+    tm = torch.ones(2100, dtype=torch.bool)
+    tm[5] = False
+    return q.to(dev), torch.ones(37, dtype=torch.bool, device=dev), t.to(dev), tm.to(dev)
+
+
+def _warp_cases(dev):
+    """(name, (query, query_mask, target, target_mask)) of the warp design's
+    edge cases; the sorted ones through spatial_sort_payload."""
+    rng = np.random.default_rng(9)
+    q, qm, t, tm = _sorted_scene(dev)
+    big_t, big_tm = tk.spatial_sort_payload(*_cloud(rng, 300_000, dev, 100.0))
+    big_q, big_qm = tk.spatial_sort_payload(*_cloud(rng, 5_000, dev, 100.0))
+    ragged = 3 * 1024 + 32 * 5 + 7  # T not a multiple of 32 or 1,024
+    return [
+        ("sorted", (q, qm, t, tm)),
+        ("ties across groups and tiles", _ties(dev)),
+        ("all-masked target", (q, qm, t, torch.zeros_like(tm))),
+        ("all-masked queries", (q, torch.zeros_like(qm), t, tm)),
+        ("Q = 1", (q[:1], torch.ones(1, dtype=torch.bool, device=dev), t, tm)),
+        ("Q = 1,000 (not a multiple of 32)", (q[:1000], qm[:1000], t, tm)),
+        ("T = 1", (q, qm, t[:1], torch.ones(1, dtype=torch.bool, device=dev))),
+        ("T ragged", (q, qm, t[:ragged], tm[:ragged])),
+        ("T > 262,144", (big_q, big_qm, big_t, big_tm)),
+        ("unsorted", (*_cloud(rng, 3000, dev), *_cloud(rng, 7000, dev))),
+        ("queries far outside the target's box", (q + 1000.0, qm, t, tm)),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("md", [None, 2.0, 1e-3])
+def test_nn_pruned_warp_cases(dev, md):
+    """The warp design against its twin, bit for bit, with and without a
+    prepared target, and against the earlier block design."""
+    for name, args in _warp_cases(dev):
+        want = tk.nn_1_pruned_reference(*args, max_distance=md)
+        prep = tk.prepare_target(args[2], args[3])
+        assert _bit_equal(tk.nn_1_pruned(*args, max_distance=md), want), (name, md)
+        assert _bit_equal(tk.nn_1_pruned(*args[:2], max_distance=md, prepared=prep),
+                          want), (name, md)
+        assert _bit_equal(tk.nn_1_pruned_variant(*args, md, tk.TQ, tk.TT, "prod"), want), (name, md)
+        visited = tk.pairs_visited(args[0], args[1], prep, md)
+        assert 0 <= visited <= 1024 * -(-args[0].shape[0] // 32) * (prep.packed.shape[0] // 32 + 1)
+
+
+@pytest.mark.cuda
+def test_nn_prep(dev):
+    """The prep kernel against its twin: packed points, group and tile boxes,
+    bit for bit (−0 coordinates included, and an all-masked group)."""
+    rng = np.random.default_rng(10)
+    for n in (1, 31, 1024, 5000):
+        xyz, mask = _cloud(rng, n, dev)
+        xyz[: min(n, 7)] = -0.0
+        mask[min(n, 64):min(n, 128)] = False
+        got = tk.prepare_target(xyz, mask)
+        want = tk.prepare_target_reference(xyz, mask)
+        assert got.n == want.n == n
+        for a, b in ((got.packed, want.packed), (got.group_box, want.group_box),
+                     (got.tile_box, want.tile_box)):
+            assert a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32)), n
 
 
 @pytest.mark.cuda

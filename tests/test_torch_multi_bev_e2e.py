@@ -59,7 +59,7 @@ def test_pipeline_tree_byte_identical_to_pctpu(small_tree, tmp_path, compat):
     shutil.copytree(small_tree, a)
     shutil.copytree(small_tree, b)
     ja = jrun(a, JSensorParams(*SMALL), batch_size=4, compat=compat)
-    pb = run_multi_bev(b, SensorParams(*SMALL), batch_size=4, compat=compat)
+    pb = run_multi_bev(b, SensorParams(*SMALL), batch_size=4, compat=compat, device="cpu")
     assert (pb.num_clouds, pb.num_major_frames) == (ja.num_clouds, ja.num_major_frames) == (8, 2)
     assert len(os.listdir(os.path.join(b, "output_multi_bev", "image"))) == 8
     assert_same_tree(a, b)
@@ -76,13 +76,13 @@ def test_cli_and_resume_byte_identical_to_pctpu(tmp_path, capsys):
     shutil.copytree(src, a)
     shutil.copytree(src, b)
     jrun(a, "HDL_32E", batch_size=2)
-    assert cli.main([b, "HDL_32E", "--batch-size=2"]) == 0
+    assert cli.main([b, "HDL_32E", "--batch-size=2", "--device=cpu"]) == 0
     assert_same_tree(a, b)
 
     os.remove(os.path.join(b, "non_ground_point_cloud", "000001.pcd"))
     os.remove(os.path.join(b, "output_multi_bev", "binary", "000001.bin"))
     capsys.readouterr()
-    assert cli.main([b, "HDL_32E", "--batch-size=2", "--resume"]) == 0
+    assert cli.main([b, "HDL_32E", "--batch-size=2", "--resume", "--device=cpu"]) == 0
     log = capsys.readouterr().out
     assert "Converting file: 000001" in log
     assert "Converting file: 000000" not in log and "Converting file: 000002" not in log
@@ -91,7 +91,7 @@ def test_cli_and_resume_byte_identical_to_pctpu(tmp_path, capsys):
 
     c = str(tmp_path / "no_pngs")
     shutil.copytree(src, c)
-    assert cli.main([c, "HDL_32E", "--batch-size=2", "--no-pngs"]) == 0
+    assert cli.main([c, "HDL_32E", "--batch-size=2", "--no-pngs", "--device=cpu"]) == 0
     fa, fc = output_files(a), output_files(c)
     assert not any(k.endswith(".png") for k in fc)
     assert fc == {k: v for k, v in fa.items() if not k.endswith(".png")}

@@ -162,6 +162,182 @@ def test_spatial_sort_payload_matches_per_key_run():
     np.testing.assert_array_equal(out_t[0].numpy(), xyz[order.numpy()])
 
 
+@pytest.mark.parametrize("n", [1, 45, 1024, 2500])
+def test_prepare_target_boxes(n):
+    """The prep twin: packed points in the target's order with +inf for
+    masked and padding rows; every group and tile box holds its valid
+    points, and an all-masked group gets pctpu's impossible box."""
+    rng = np.random.default_rng(n)
+    xyz = rng.uniform(-40, 40, (n, 3)).astype(np.float32)
+    mask = rng.random(n) > 0.2
+    mask[32:64] = False  # an all-masked group when n > 32
+    prep = tk.prepare_target(_t(xyz), _t(mask))
+    tiles = -(-n // 1024)
+    packed, gbox, tbox = prep.packed.numpy(), prep.group_box.numpy(), prep.tile_box.numpy()
+    assert prep.n == n and packed.shape == (tiles * 1024, 4)
+    assert gbox.shape == (8, tiles * 32) and tbox.shape == (8, tiles)
+    np.testing.assert_array_equal(packed[:n][mask, :3], xyz[mask])
+    assert np.all(np.isinf(packed[:n][~mask, :3])) and np.all(np.isinf(packed[n:, :3]))
+    assert not packed[:, 3].any() and not gbox[6:].any() and not tbox[6:].any()
+    pad = np.zeros(tiles * 1024, bool)
+    pad[:n] = mask
+    pts = np.zeros((tiles * 1024, 3), np.float32)
+    pts[:n] = xyz
+    for box, size in ((gbox, 32), (tbox, 1024)):
+        for c in range(box.shape[1]):
+            sel = pad[c * size:(c + 1) * size]
+            run = pts[c * size:(c + 1) * size][sel]
+            if sel.any():
+                assert np.all(box[0:3, c] <= run.min(0)) and np.all(box[3:6, c] >= run.max(0))
+            else:
+                assert np.all(box[0:3, c] == np.float32(3e38))
+                assert np.all(box[3:6, c] == np.float32(-3e38))
+    if n > 64:
+        assert np.all(gbox[0:3, 1] == np.float32(3e38))
+
+
+def test_prepared_tile_boxes_equal_pctpu():
+    """At 1,024 points the prep twin's tile boxes are pctpu's
+    ``_tile_bboxes`` (by value: the prep stores −0 as +0)."""
+    rng = np.random.default_rng(13)
+    xyz = rng.uniform(-80, 80, (3000, 3)).astype(np.float32)
+    xyz[:7] = -0.0
+    mask = rng.random(3000) > 0.2
+    mask[1024:2048] = False  # a fully masked tile
+    prep = tk.prepare_target(_t(xyz), _t(mask))
+    pad = np.zeros((3072, 3), np.float32)
+    pad[:3000] = xyz
+    pmask = np.zeros(3072, bool)
+    pmask[:3000] = mask
+    want = np.asarray(pk._tile_bboxes(jnp.asarray(pad), jnp.asarray(pmask), 1024))
+    got = prep.tile_box.numpy()
+    np.testing.assert_array_equal(got, want)
+    assert not np.signbit(got[got == 0]).any()
+
+
+@pytest.mark.parametrize("md", [None, 2.0])
+def test_prepared_matches_pallas_kernel(md):
+    """``nn_1_pruned`` on a prepared target equals the path without one and
+    matches pctpu's loop kernel in interpret mode, as
+    :func:`test_twin_matches_pallas_kernel` holds it."""
+    q, qm, t, tm = _sorted_clouds(8, 300, 1500, masked=True)
+    args = tuple(map(_t, (q, qm, t, tm)))
+    prep = tk.prepare_target(args[2], args[3])
+    i_t, d_t = tk.nn_1_pruned(*args[:2], max_distance=md, prepared=prep)
+    i_u, d_u = tk.nn_1_pruned(*args, max_distance=md)
+    assert torch.equal(i_t, i_u) and torch.equal(d_t.view(torch.int32), d_u.view(torch.int32))
+    i_p, d_p = pk.pallas_nn_1_pruned(q, qm, t, tm, max_distance=md, tq=128, tt=256,
+                                     interpret=True, kernel="loop")
+    i_p, d_p, i_t, d_t = np.asarray(i_p), np.asarray(d_p), i_t.numpy(), d_t.numpy()
+    found = np.isfinite(d_t)
+    sure = qm & _unambiguous(q, t, tm)
+    assert sure.sum() > 0.9 * qm.sum()
+    np.testing.assert_array_equal(i_t[sure & found], i_p[sure & found])
+    agree = qm & found & (i_t == i_p)
+    np.testing.assert_array_equal(d_t[agree], d_p[agree])
+    # the mask lives in the prepared target alone: a pass given both, or
+    # neither, raises, so no pass can run with a mask it was not prepared with
+    for target in ((args[2], ~args[3]), (args[2], args[3]), (None, args[3])):
+        with pytest.raises(ValueError):
+            tk.nn_1_pruned(*args[:2], *target, max_distance=md, prepared=prep)
+    with pytest.raises(ValueError):
+        tk.nn_1_pruned(*args[:2], max_distance=md)
+
+
+def test_prepared_pass_uses_the_prepared_mask():
+    """A pass on a prepared target searches the mask it was prepared with:
+    a second mask prepared from the same points gives that mask's answer."""
+    q, qm, t, tm = _sorted_clouds(9, 200, 900, masked=True)
+    args = tuple(map(_t, (q, qm, t, tm)))
+    other = args[3] & _t(np.random.default_rng(9).random(900) > 0.5)
+    for mask in (args[3], other):
+        got = tk.nn_1_pruned(*args[:2], prepared=tk.prepare_target(args[2], mask),
+                             max_distance=4.0)
+        want = tk.nn_1_pruned_reference(*args[:3], mask, max_distance=4.0)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not torch.equal(got[0], tk.nn_1_pruned(*args, max_distance=4.0)[0])
+
+
+@pytest.mark.parametrize("point_to_plane", [False, True])
+def test_icp_prepares_each_target_once(monkeypatch, point_to_plane):
+    """``icp`` prepares the correspondence target and the fitness target
+    once per call (one object when the masks are the same), and its
+    transforms equal those of passes that prepare nothing."""
+    from pctpu_torch.config import IcpConfig
+    from pctpu_torch.ops import icp as icp_mod
+
+    rng = np.random.default_rng(21)
+    tgt = rng.uniform(-20, 20, (700, 3)).astype(np.float32)
+    th = np.radians(4.0)
+    rot = np.array([[np.cos(th), -np.sin(th), 0], [np.sin(th), np.cos(th), 0], [0, 0, 1]],
+                   np.float32)
+    src = (tgt @ rot.T + np.float32([0.3, -0.2, 0.0])).astype(np.float32)
+    tm = rng.random(700) > 0.1
+    nrm = rng.normal(size=(700, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    nok = rng.random(700) > 0.2
+    cfg = IcpConfig(max_correspondence_distance=2.0, max_iterations=6,
+                    point_to_plane=point_to_plane)
+    extra = dict(tgt_normals=_t(nrm), normal_mask=_t(nok)) if point_to_plane else {}
+    made = {}  # id of each prepared target -> the (target, mask) it was made from
+    real_prepare = icp_mod.prepare_target
+
+    def recording(*a):
+        prep = real_prepare(*a)
+        made[id(prep)] = a
+        return prep
+
+    def run():
+        return icp_mod.icp(_t(src), torch.ones(700, dtype=torch.bool), _t(tgt), _t(tm),
+                           torch.eye(4), cfg, nn_impl="pruned", **extra)
+
+    monkeypatch.setattr(icp_mod, "prepare_target", recording)
+    prepared = run()
+    assert len(made) == (2 if point_to_plane else 1)
+    real_nn = icp_mod.nn_1_pruned
+    # the same passes on the unprepared path, given what each target was made from
+    monkeypatch.setattr(icp_mod, "nn_1_pruned", lambda q, qm, prepared, max_distance:
+                        real_nn(q, qm, *made[id(prepared)], max_distance=max_distance))
+    bare = run()
+    assert torch.equal(prepared.transform, bare.transform)
+    assert torch.equal(prepared.fitness, bare.fitness)
+    assert bool(prepared.converged) and torch.isfinite(prepared.fitness)
+
+
+_CLIS = {
+    "batch_top_part_registration": ["match.txt", "clouds"],
+    "batch_whole_registration": ["match.txt", "clouds"],
+    "batch_multi_bev_gen": ["root", "HDL_64E"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(_CLIS))
+def test_cli_needs_card_or_device_cpu(name, capsys):
+    """With no CUDA card and no ``--device=cpu`` a CLI stops with a message
+    naming the flag; it does not fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the CLI would run on it")
+    cli = __import__(f"pctpu_torch.cli.{name}", fromlist=["main"])
+    with pytest.raises(SystemExit) as exc:
+        cli.main(_CLIS[name])
+    assert exc.value.code != 0
+    assert "--device=cpu" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as exc:
+        cli.main([*_CLIS[name], "--device=tpu"])
+    assert exc.value.code != 0
+
+
+@pytest.mark.parametrize("entry", ["registration.run_batch_top_part_registration",
+                                   "registration.run_batch_whole_registration",
+                                   "multi_bev.run_multi_bev"])
+def test_entry_points_default_to_cuda(entry):
+    import inspect
+
+    module, fn = entry.split(".")
+    mod = __import__(f"pctpu_torch.pipelines.{module}", fromlist=[fn])
+    assert inspect.signature(getattr(mod, fn)).parameters["device"].default == "cuda"
+
+
 def test_port_imports_no_jax():
     """Importing the port pulls in neither jax nor pctpu, and builds
     nothing: the CUDA library is compiled at first launch only."""

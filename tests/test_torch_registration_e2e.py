@@ -106,7 +106,7 @@ def test_cli_matches_pctpu(tree, monkeypatch, capsys):
     port_report = str(root / "port_report.txt")
     got = _run_port(monkeypatch,
                     [match, clouds, f"--report={port_report}", "--capacity=1024",
-                     "--flat-cap=1024"],
+                     "--flat-cap=1024", "--device=cpu"],
                     registration_config_from(dataclasses.asdict(SMALL)))
     out = capsys.readouterr().out
     assert "device: cpu" in out and "[TIME] Avg Tiempo for 2nd Stage (fine)" in out
@@ -132,7 +132,7 @@ def test_cli_resume_and_unported_flags(tree, monkeypatch):
     report = str(root / "resume_report.txt")
     cfg = registration_config_from(dataclasses.asdict(SMALL))
     argv = [match, clouds, f"--report={report}", "--capacity=1024",
-            "--flat-cap=1024"]
+            "--flat-cap=1024", "--device=cpu"]
     first = _run_port(monkeypatch, argv, cfg)
     assert len(first) == len(PAIRS)
     before = open(report).read()

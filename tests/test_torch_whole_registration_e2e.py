@@ -97,7 +97,7 @@ def test_cli_matches_pctpu(tree, monkeypatch, capsys):
     counts = jreg.run_batch_whole_registration(match, clouds, report_path=str(ref_report),
                                                pair_batch=1)
     port_report = root / "port_whole.txt"
-    assert port_cli.main([match, clouds, f"--report={port_report}"]) == 0
+    assert port_cli.main([match, clouds, f"--report={port_report}", "--device=cpu"]) == 0
     out = capsys.readouterr().out
     assert "device: cpu" in out and "capacity auto-derived from headers: 8192" in out
     assert "[TIME] Avg Tiempo for 2nd Stage (fine)" in out
@@ -128,7 +128,7 @@ def test_failure_classification_matches_pctpu(tree, tmp_path):
                                             report_path=str(tmp_path / "j.txt"),
                                             capacity=4096)
     got = port_reg.run_batch_whole_registration(match, clouds, cfg=cfg_t, capacity=4096,
-                                                report_path=str(tmp_path / "t.txt"))
+                                                report_path=str(tmp_path / "t.txt"), device="cpu")
     assert got == ref == (0, len(PAIRS))
     assert (tmp_path / "t.txt.progress").read_bytes() == (tmp_path / "j.txt.progress").read_bytes()
 
@@ -140,7 +140,7 @@ def test_cli_resume_usage_and_unported_flags(tree, monkeypatch, capsys):
     real = port_reg.icp_point_to_point
     monkeypatch.setattr(port_reg, "icp_point_to_point",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
-    argv = [match, clouds, f"--report={report}", "--capacity=4096"]
+    argv = [match, clouds, f"--report={report}", "--capacity=4096", "--device=cpu"]
     assert port_cli.main(argv) == 0
     assert len(calls) == len(PAIRS)
     progress = (root / "resume_whole.txt.progress").read_text()
@@ -158,4 +158,4 @@ def test_cli_resume_usage_and_unported_flags(tree, monkeypatch, capsys):
         with pytest.raises(NotImplementedError):
             port_cli.main([match, clouds, flag])
     with pytest.raises(SystemExit):
-        port_cli.main([match, clouds, "--capacity=big"])
+        port_cli.main([match, clouds, "--capacity=big", "--device=cpu"])
