@@ -15,16 +15,24 @@ Phases, each of which raises on failure (the exit code is then not 0):
    coarse pass (8,192 flat points, thr 10 m), the whole-cloud pass of
    ``batch_whole_registration`` (65,536 uncut, sorted in each cloud's own
    frame, the source moved by the yaw-only guess: thr 4 m and none; and
-   thr 4 m near the truth) and past 262,144 targets; the
-   voxel segment sums at 65,536 points.  Zero index mismatches and
-   bit-equal results are required.  For each 1-NN case: the warp design
+   thr 4 m near the truth) and past 262,144 targets; the in-order
+   segment sums at 65,536 voxel rows (and, in phase 9, at the sector sums
+   of 8 HDL-64E clouds): the tile kernel and the first design's walk
+   (``csrc/segment_sum.cu``) bit-equal to the twin and a second run, then,
+   in turns in the one call, each alone and with its wrapper, the tile
+   kernel without its fill, the twin, ``torch.index_add`` and
+   ``torch.segment_reduce``, the bound reckoned from the work (bytes, or
+   the longest segment's chain of dependent adds), per-kernel profiler
+   times, the launches a call makes and ptxas's registers.  Zero index
+   mismatches and bit-equal results are required.  For each 1-NN case: the warp design
    (``csrc/nn_pruned_warp.cu``) with and without a prepared target, its prep
    kernel and the earlier block design (the <128, 1024, prod> variant), each
    against the twin, then CUDA-event times of each (the launches alone and
    with the wrapper), the pairs the warp design visits (its counting
    instance), the per-query 32-group oracle's pairs and the bound; one pass
    on a prepared target must put at most 3 kernels on the card;
-   ``torch.cdist(q, t).min(1)`` at the fine and whole shapes;
+   ``torch.cdist(q, t).min(1)`` at the fine and whole shapes and at
+   20,000 × 300,000;
 4. the voxel grid on the card twice and on the CPU: bit-identical;
 5. the slice: a keyframe tree of the 65,536-capacity registration scene and
    moved copies with known yaw and translation
@@ -46,7 +54,9 @@ Phases, each of which raises on failure (the exit code is then not 0):
 9. ``batch_multi_bev_gen`` on a ray-cast HDL-64E drive (64 grid-ordered
    clouds, two raw clouds with duplicate cells, one over the grid's
    capacity; ``pctpu_torch.experiments.scene``): the BEV raster and the
-   in-order ground sums bit-equal to their twins at B = 8; the CLI in both
+   in-order ground sums bit-equal to their twins at B = 8;
+   ``preprocess_batch`` timed with the tile kernel and, in turns, with the
+   walk in the sector sums' place; the CLI in both
    compat modes after a warm-up, printing clouds/s, its ``[TIME]`` lines,
    launches per batch, the writer and the largest ground sector; the
    tolerance tree byte-identical to the bit-exact tree, the card's tree to
@@ -93,32 +103,36 @@ def require_launched(counts: dict, names, path: str) -> None:
             raise AssertionError(f"kernel {name} was not launched by {path}")
 
 
-def print_ptxas(path) -> None:
-    """One line per compiled kernel: registers, spills, shared memory."""
+def print_ptxas(path) -> dict[str, str]:
+    """One line per compiled kernel: registers, spills, shared memory.
+    Returns them by kernel name."""
+    found: dict[str, str] = {}
     if not os.path.exists(path):
-        return
+        return found
     name = None
     spill = ""
     for line in open(path):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-            tpl = re.findall(r"ILi(\d+)ELi(\d+)ELi(\d+)E", name)
-            short = re.search(r"(nn_pruned_kernel|nn_fused_kernel|segment_sum4_kernel"
+            tpl = re.findall(r"Li(\d+)E", name)
+            short = re.search(r"(nn_pruned_kernel|nn_fused_kernel|segment_sum_tile_kernel"
+                              r"|segment_sum_walk_kernel|segment_fill_kernel"
                               r"|bev_raster_kernel|bev_expand_kernel|nn_prep_kernel"
                               r"|nn_seed_kernel|nn_main_kernel|nn_finish_kernel)", name)
             counting = "ILb1E" in name
             name = (short.group(1) if short else name) + (
-                f"<{','.join(tpl[0])}>" if tpl else "<counting>" if counting else "")
+                f"<{','.join(tpl)}>" if tpl else "<counting>" if counting else "")
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
         m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
         if m and name:
-            print(f"  ptxas {name}: {m.group(1)} registers, {m.group(2) or 0} B static smem, "
-                  f"{spill}")
+            found[name] = f"{m.group(1)} registers, {m.group(2) or 0} B static smem, {spill}"
+            print(f"  ptxas {name}: {found[name]}")
             name = None
+    return found
 
 
 def compare(name: str, got, want) -> float:
@@ -151,41 +165,104 @@ def tree_files(root: str) -> dict[str, bytes]:
     return files
 
 
-def profile_calls(fn, reps: int = 50) -> tuple[int, int, dict[str, float]]:
-    """What one call of ``fn`` puts on the card, by torch.profiler over
-    ``reps`` calls after a warm-up: (kernels, copies and memsets, {kernel
-    name: device ms}), per call.  The counts are rounded: the profiler can
-    miss an event or two of a window."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    copies = [e for e in events if e.name.startswith(("Memcpy", "Memset"))]
-    ms: dict[str, float] = {}
-    for e in events:
-        if e not in copies:
-            name = m.group(0) if (m := re.search(r"\w+_kernel", e.name)) else e.name
-            ms[name] = ms.get(name, 0.0) + e.device_time_total / 1e3 / reps
-    return round((len(events) - len(copies)) / reps), round(len(copies) / reps), ms
-
-
-def library_sums_ms(values: torch.Tensor, seg: torch.Tensor) -> tuple[float, float]:
+def library_sums_ms(rows: torch.Tensor, seg: torch.Tensor, n_out: int) -> tuple[float, float]:
     """The library yardsticks of the segment sums, each one call over the
     rows that join a segment: ``torch.index_add`` (its atomics add in no
     fixed order) and ``torch.segment_reduce`` given the run lengths."""
     from pctpu_torch.experiments.card import cuda_ms
 
-    keep = seg >= 0
-    idx, rows = seg[keep], values[keep]
+    keep = (seg >= 0) & (seg < n_out)
+    idx, rows = seg[keep].long(), rows[keep]
     lengths = torch.unique_consecutive(idx, return_counts=True)[1]
-    zeros = torch.zeros_like(values)
+    zeros = torch.zeros((n_out, rows.shape[1]), dtype=torch.float32, device=rows.device)
     return (cuda_ms(lambda: torch.index_add(zeros, 0, idx, rows), reps=20),
             cuda_ms(lambda: torch.segment_reduce(rows, "sum", lengths=lengths), reps=20))
+
+
+def sums_case(name: str, args: tuple, count_as: str, ptxas: dict, smi: str,
+              clock_mhz: float, fill: bool = True) -> dict:
+    """One shape of the in-order segment sums, ``args`` = (values, seg, init,
+    n_out, order): the tile kernel and the first design's walk, each held bit
+    for bit against the twin, and the tile kernel against a second run of
+    itself; then, in this one call, each alone (the C call's launches, CUDA
+    events, and per kernel by torch.profiler) and with its wrapper, the tile
+    kernel without its fill, the twin, the two library calls, the bound
+    reckoned from the work, and the launches a wrapper call makes.  ``fill``
+    says whether the path's caller asks for the fill: the entry's ``ms`` and
+    ``wrapper_ms`` are the tile kernel's as the path calls it."""
+    from pctpu_torch.experiments.card import cuda_ms, profile_calls, segment_sums_bound
+    from pctpu_torch.ops import voxel
+
+    values, seg, init, n_out, order = args
+    n_out = seg.shape[0] if n_out is None else n_out
+    lanes = values.shape[1]
+    want = voxel.segment_sum_sorted_reference(*args)
+    got = voxel.segment_sum_sorted(*args, count_as=count_as)
+    err = compare(f"{name}: tile kernel", [got], [want])
+    compare(f"{name}: walk kernel", [voxel.segment_sum_walk(*args)], [want])
+    compare(f"{name}: tile kernel, second run",
+            [voxel.segment_sum_sorted(*args, count_as=count_as)], [got])
+    launch = {
+        "tile": voxel._segment_launcher(*args, count_as)[0],
+        "tile, no fill": voxel._segment_launcher(*args, count_as, fill=False)[0],
+        "walk": voxel._segment_launcher(*args, "segment_sum_walk", walk=True)[0],
+    }
+    wrapper = {
+        "tile": lambda: voxel.segment_sum_sorted(*args, count_as=count_as),
+        "tile, no fill": lambda: voxel.segment_sum_sorted(*args, count_as=count_as, fill=False),
+        "walk": lambda: voxel.segment_sum_walk(*args),
+    }
+    # in turns: tile, walk, walk, tile
+    alone = {k: [] for k in launch}
+    wrapped = {k: [] for k in wrapper}
+    for k in ("tile", "tile, no fill", "walk", "walk", "tile, no fill", "tile"):
+        alone[k].append(cuda_ms(launch[k], reps=50))
+    for k in ("tile", "tile, no fill", "walk", "walk", "tile, no fill", "tile"):
+        wrapped[k].append(cuda_ms(wrapper[k], reps=50))
+    alone = {k: min(v) for k, v in alone.items()}
+    wrapped = {k: min(v) for k, v in wrapped.items()}
+    prof = {k: profile_calls(fn) for k, fn in wrapper.items()}
+    rows = values if order is None else values[order]
+    twin_ms = cuda_ms(lambda: voxel.segment_sum_sorted_reference(*args), reps=2, warmup=1)
+    add_ms, reduce_ms = library_sums_ms(rows, seg, n_out)
+    bound = segment_sums_bound(seg, lanes, n_out, clock_mhz)
+    regs = {k: v for k, v in ptxas.items() if k.startswith("segment_") and f"<{lanes}>" in k}
+    print(f"  {name}: {seg.shape[0]} rows of {lanes} lanes, {bound['rows']} in {bound['segments']} "
+          f"segments, longest {bound['longest']}; tile kernel alone {alone['tile']:.4f} ms "
+          f"(without its fill {alone['tile, no fill']:.4f}), with wrapper "
+          f"{wrapped['tile']:.4f} ms (without its fill {wrapped['tile, no fill']:.4f}; the path "
+          f"calls it with{'' if fill else 'out'}); walk alone {alone['walk']:.4f} ms, with wrapper "
+          f"{wrapped['walk']:.4f} ms; twin {twin_ms:.4f} ms; torch.index_add {add_ms:.4f} ms, "
+          f"torch.segment_reduce {reduce_ms:.4f} ms; bound {bound['ms']:.6f} ms "
+          f"({bound['by']}: {bound['bytes']} B, chain {bound['chain_ms']:.6f} ms at "
+          f"{clock_mhz:.0f} MHz), reached {bound['ms'] / alone['tile' if fill else 'tile, no fill']:.4f}; a wrapper call puts "
+          f"{prof['tile'][0]} kernels + {prof['tile'][1]} copies/memsets on the card (walk "
+          f"{prof['walk'][0]} + {prof['walk'][1]}); device ms by kernel (torch.profiler) "
+          f"{ {k: round(v, 6) for k, v in {**prof['walk'][2], **prof['tile'][2]}.items()} }; "
+          f"ptxas {regs}; card {smi}")
+    if prof["tile"][0] > 2 or prof["tile"][1]:
+        raise AssertionError(f"{name}: a wrapper call launches more than fill + sums")
+    # the least of two timings each; a quarter over the walk is past their noise
+    if alone["tile"] > 1.25 * alone["walk"] or wrapped["tile"] > 1.25 * wrapped["walk"]:
+        raise AssertionError(f"{name}: the tile kernel is slower than the walk")
+    path = "tile" if fill else "tile, no fill"
+    return {"err": err, "ms": alone[path], "wrapper_ms": wrapped[path],
+            "walk_ms": alone["walk"], "walk_wrapper_ms": wrapped["walk"], "plain_ms": twin_ms,
+            "library_ms": add_ms, "segment_reduce_ms": reduce_ms, "bound": bound}
+
+
+def sums_entry(name: str, replaces: str, launches: int, case: dict) -> dict:
+    """A ``kernels`` entry of the segment sums.  ``bound_by`` keeps to
+    "bytes" or "operations" (the chain of dependent adds is the latter);
+    ``bound_detail`` says "chain" where it is that."""
+    bound = case["bound"]
+    return {"name": name, "route": "cuda", "source": "pctpu_torch/csrc/segment_sum.cu",
+            "replaces": replaces, "launches": launches, "max_abs_err": case["err"],
+            "ms": case["ms"], "plain_ms": case["plain_ms"], "bound_ms": bound["ms"],
+            "bound_by": "bytes" if bound["by"] == "bytes" else "operations",
+            "library_ms": case["library_ms"], "bound_detail": bound["by"],
+            "wrapper_ms": case["wrapper_ms"], "walk_ms": case["walk_ms"],
+            "segment_reduce_ms": case["segment_reduce_ms"]}
 
 
 def nn_case(name: str, args, md, smi: str) -> dict:
@@ -194,7 +271,8 @@ def nn_case(name: str, args, md, smi: str) -> dict:
     (the <128, 1024, prod> variant), each held bit for bit against its twin;
     then their times, the pairs the warp design visits (its counting
     instance), the per-query 32-group oracle's pairs and the bound."""
-    from pctpu_torch.experiments.card import NN_FLOP_PER_PAIR, bound_ms, cuda_ms, oracle_pairs
+    from pctpu_torch.experiments.card import (NN_FLOP_PER_PAIR, bound_ms, cuda_ms, oracle_pairs,
+                                              profile_calls)
     from pctpu_torch.ops import cuda_knn
 
     q, qm, t, tm = args
@@ -256,13 +334,14 @@ def nn_case(name: str, args, md, smi: str) -> dict:
     return out
 
 
-def multi_bev_phase(dev: torch.device, smi: str, n_ordered: int = 64) -> list[dict]:
+def multi_bev_phase(dev: torch.device, smi: str, n_ordered: int = 64, ptxas: dict | None = None,
+                    clock_mhz: float = 1980.0) -> list[dict]:
     """Phase 9 (module docstring).  Returns the ``kernels`` entries of the
     BEV raster and the ground sums."""
     from pctpu_torch.cli import batch_multi_bev_gen as bev_cli
     from pctpu_torch.config import GroundConfig, get_sensor_params
     from pctpu_torch.experiments import oracle
-    from pctpu_torch.experiments.card import bound_ms, cuda_ms
+    from pctpu_torch.experiments.card import bound_ms, cuda_ms, profile_calls
     from pctpu_torch.experiments.scene import multi_bev_tree
     from pctpu_torch.io.pcd import read_pcd
     from pctpu_torch.io.png import read_gray_png
@@ -291,19 +370,12 @@ def multi_bev_phase(dev: torch.device, smi: str, n_ordered: int = 64) -> list[di
     lo0 = (params.n_scan - params.ground_upper_scan - 1) * params.horizon_scan
     band = ordered.xyz[:, lo0:]
     srow, scol = ground._belonging_grid(band[..., 0], band[..., 1], cfg)
-    values, seg = ground.sector_sums_rows(srow * cfg.grid_cols + scol, band[..., 2].contiguous(),
-                                          gm.reshape(8, -1)[:, lo0:] == 1, cfg)
-    largest = int(torch.unique_consecutive(seg[seg >= 0], return_counts=True)[1].max()) - 1
-    sums_err = compare("ground sums (B = 8)",
-                       [voxel.segment_sum_sorted(values, seg, count_as="ground_sums")],
-                       [voxel.segment_sum_sorted_reference(values, seg)])
-    sums_ms = cuda_ms(lambda: voxel.segment_sum_sorted(values, seg, count_as="ground_sums"),
-                      reps=20)
-    sums_ref_ms = cuda_ms(lambda: voxel.segment_sum_sorted_reference(values, seg), reps=2,
-                          warmup=1)
-    sums_lib_ms, sums_reduce_ms = library_sums_ms(values, seg)
-    # rows (16 B) and ids (8 B) read once, sums (16 B a row) written once
-    sums_bound = bound_ms(values.shape[0] * (16 + 8 + 16), 4 * values.shape[0])
+    values, seg, order = ground.sector_sums_rows(srow * cfg.grid_cols + scol, band[..., 2],
+                                                 gm.reshape(8, -1)[:, lo0:] == 1, cfg)
+    sums = sums_case("ground sums (B = 8)",
+                     (values, seg, (0.0, cfg.count_epsilon), 8 * cfg.grid_rows * cfg.grid_cols,
+                      order), "ground_sums", ptxas or {}, smi, clock_mhz)
+    largest = sums["bound"]["longest"]
     rasters = bev.fused_multi_single_bev(labeled, params.height_res)
     bev_err = compare("bev_raster (B = 8)", rasters,
                       bev.fused_multi_single_bev_reference(labeled, params.height_res))
@@ -312,17 +384,32 @@ def multi_bev_phase(dev: torch.device, smi: str, n_ordered: int = 64) -> list[di
                          reps=5)
     # xyz and label (16 B a point) read once, both rasters (1 B a cell) written
     bev_bound = bound_ms(labeled.label.numel() * 16 + sum(r.numel() for r in rasters), 0)
-    print(f"  ground sums: kernel {sums_ms:.4f} ms, twin {sums_ref_ms:.4f} ms, "
-          f"torch.index_add {sums_lib_ms:.4f} ms, torch.segment_reduce {sums_reduce_ms:.4f} ms, "
-          f"bound {sums_bound[0]:.6f} ms "
-          f"({sums_bound[1]}; {values.shape[0]} rows, largest sector {largest} points); "
-          f"card {smi}")
     print(f"  bev_raster: kernel {bev_ms:.4f} ms, twin {bev_ref_ms:.4f} ms, bound "
           f"{bev_bound[0]:.6f} ms ({bev_bound[1]}); card {smi}")
+    def with_walk(fn):
+        """``fn()`` with the sector sums taken by the first design's walk."""
+        real = ground.segment_sum_sorted
+        ground.segment_sum_sorted = lambda *a, count_as=None, **k: voxel.segment_sum_walk(*a, **k)
+        try:
+            return fn()
+        finally:
+            ground.segment_sum_sorted = real
+
     for compat in ("bitexact", "tolerance"):
         def step(compat=compat):
             return preprocess_batch(clouds, params, assume_ordered=True, compat=compat)
         dev_ms = cuda_ms(step, reps=10)
+        if compat == "bitexact":
+            # the same batch with the walk in the sums' place, in turns
+            walk_ms = [with_walk(lambda: cuda_ms(step, reps=10)) for _ in range(2)]
+            dev_ms = min(dev_ms, cuda_ms(step, reps=10))
+            by_walk, by_tile = with_walk(step), step()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(by_walk[1:], by_tile[1:])):
+                raise AssertionError("preprocess_batch: the walk and the tile kernel disagree")
+            print(f"  preprocess_batch B = 8 (bitexact) with the walk kernel for the sector sums: "
+                  f"{min(walk_ms):.4f} ms; with the tile kernel {dev_ms:.4f} ms (CUDA events, the "
+                  f"least of two each, in turns); card {smi}")
         _, multi, single = step()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -444,10 +531,7 @@ def multi_bev_phase(dev: torch.device, smi: str, n_ordered: int = 64) -> list[di
          "replaces": "pctpu/ops/bev.py:95", "launches": bev_launches,
          "max_abs_err": bev_err, "ms": bev_ms, "plain_ms": bev_ref_ms,
          "bound_ms": bev_bound[0], "bound_by": bev_bound[1], "library_ms": None},
-        {"name": "ground_sums", "route": "cuda", "source": "pctpu_torch/csrc/segment_sum.cu",
-         "replaces": "pctpu/ops/ground.py:113", "launches": sums_launches,
-         "max_abs_err": sums_err, "ms": sums_ms, "plain_ms": sums_ref_ms,
-         "bound_ms": sums_bound[0], "bound_by": sums_bound[1], "library_ms": sums_lib_ms},
+        sums_entry("ground_sums", "pctpu/ops/ground.py:113", sums_launches, sums),
     ]
 
 
@@ -461,7 +545,8 @@ def main() -> int:
     from pctpu_torch.cli import batch_top_part_registration as cli
     from pctpu_torch.cli import batch_whole_registration as whole_cli
     from pctpu_torch.experiments import nn_argmin
-    from pctpu_torch.experiments.card import bound_ms, cuda_ms, nvidia_smi_line
+    from pctpu_torch.experiments.card import (bound_ms, cuda_ms, nvidia_smi_line, profile_calls,
+                                              sm_clock_mhz)
     from pctpu_torch.experiments.scene import (TREE_PAIRS, TREE_POSES, pose, registration_scene,
                                                registration_tree)
     from pctpu_torch.ops import _cuda, cuda_knn, knn, voxel
@@ -483,6 +568,8 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     smi = nvidia_smi_line()
     print(smi)
+    clock_mhz = sm_clock_mhz()
+    print(f"highest SM clock {clock_mhz:.0f} MHz")
 
     # --- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -490,7 +577,7 @@ def main() -> int:
     _cuda.library()
     print(f"build: {time.perf_counter() - t0:.2f} s ({'compiled' if fresh else 'cached'} "
           f"{os.path.relpath(_cuda.library_path(), ROOT)})")
-    print_ptxas(_cuda.library_path().with_suffix(".ptxas.txt"))
+    ptxas = print_ptxas(_cuda.library_path().with_suffix(".ptxas.txt"))
 
     # --- 3. kernels against their twins, on the card -------------------------
     rng = np.random.default_rng(1)
@@ -579,18 +666,25 @@ def main() -> int:
         print(f"  {name}: torch.cdist(q, t).min(1) {nn_ms[name]['library']:.4f} ms "
               f"(Q={q.shape[0]}, T={t.shape[0]}); card {smi}")
 
+    # past 262,144 targets: the same call in one piece (24 GB of distances),
+    # or in query chunks if the card cannot hold them
+    big_name = nn_cases[-2][0]
+    try:
+        nn_ms[big_name]["library"] = cuda_ms(lambda: torch.cdist(big_q, big_t).min(1), reps=2,
+                                             warmup=1)
+        how = "one call"
+    except torch.cuda.OutOfMemoryError:
+        torch.cuda.empty_cache()
+        nn_ms[big_name]["library"] = cuda_ms(
+            lambda: [torch.cdist(c, big_t).min(1) for c in big_q.split(5000)], reps=2, warmup=1)
+        how = "query chunks of 5,000"
+    torch.cuda.empty_cache()
+    print(f"  {big_name}: torch.cdist(q, t).min(1) {nn_ms[big_name]['library']:.4f} ms "
+          f"(Q={big_q.shape[0]}, T={big_t.shape[0]}, {how}); card {smi}")
+
     values, seg, _ = voxel.voxel_segments(src, src_m, 0.2)
-    seg_err = compare("segment sums (65,536 points)",
-                      [voxel.segment_sum_sorted(values, seg)],
-                      [voxel.segment_sum_sorted_reference(values, seg)])
-    seg_ms = cuda_ms(lambda: voxel.segment_sum_sorted(values, seg), reps=50)
-    seg_ref_ms = cuda_ms(lambda: voxel.segment_sum_sorted_reference(values, seg), reps=5)
-    seg_lib_ms, seg_reduce_ms = library_sums_ms(values, seg)
-    seg_bound = bound_ms(values.shape[0] * (16 + 8 + 16), 4 * values.shape[0])
-    print(f"  segment sums: kernel {seg_ms:.4f} ms, twin {seg_ref_ms:.4f} ms, "
-          f"torch.index_add {seg_lib_ms:.4f} ms, torch.segment_reduce {seg_reduce_ms:.4f} ms, "
-          f"bound {seg_bound[0]:.6f} ms "
-          f"({seg_bound[1]})")
+    seg_sums = sums_case("segment sums (65,536 voxel rows)", (values, seg, None, None, None),
+                         "segment_sum4", ptxas, smi, clock_mhz, fill=False)
 
     # --- 4. the voxel grid: deterministic on the card, equal to the CPU ------
     runs = [voxel.voxel_downsample(src, src_m, 0.2) for _ in range(2)]
@@ -773,7 +867,7 @@ def main() -> int:
           f"(kernel {anchor['kernel_ms']:.4f} ms), twin {exp['twin_ms']:.4f} ms")
 
     # --- 9. batch_multi_bev_gen ----------------------------------------------
-    bev_kernels = multi_bev_phase(dev, smi)
+    bev_kernels = multi_bev_phase(dev, smi, ptxas=ptxas, clock_mhz=clock_mhz)
 
     # K1, the prep and K4's <128, 1024, prod> on the fine pass at thr 1 m
     fine = nn_ms["fine thr 1 m"]
@@ -789,10 +883,7 @@ def main() -> int:
          "max_abs_err": prep_err, "ms": fine["prep"], "plain_ms": fine["prep_twin"],
          "bound_ms": fine["prep_bound"], "bound_by": fine["prep_bound_by"],
          "library_ms": None},
-        {"name": "segment_sum4", "route": "cuda", "source": "pctpu_torch/csrc/segment_sum.cu",
-         "replaces": "pctpu/ops/voxel.py:80", "launches": launches["segment_sum4"],
-         "max_abs_err": seg_err, "ms": seg_ms, "plain_ms": seg_ref_ms,
-         "bound_ms": seg_bound[0], "bound_by": seg_bound[1], "library_ms": seg_lib_ms},
+        sums_entry("segment_sum4", "pctpu/ops/voxel.py:80", launches["segment_sum4"], seg_sums),
         {"name": "nn_fused", "route": "cuda", "source": "pctpu_torch/csrc/nn_fused.cu",
          "replaces": "pctpu/ops/pallas_knn.py:38", "launches": fused_launches,
          "max_abs_err": fused_err, "ms": big_fused[0], "plain_ms": big_fused[1],

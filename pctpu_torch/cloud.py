@@ -78,9 +78,9 @@ def make_cloud(
     label=None,
     count: int | None = None,
     capacity: int | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> Cloud:
-    """Build a Cloud on ``device``, zero-padding every field up to
+    """Build a Cloud on ``device`` (the card unless asked otherwise), zero-padding every field up to
     ``capacity`` (padding slots are all-zero, like default-constructed PCL
     points)."""
     xyz = np.asarray(xyz, np.float32)
@@ -113,10 +113,10 @@ def make_cloud(
     )
 
 
-def from_numpy(d: dict, device: torch.device | str = "cpu") -> Cloud:
-    """Build a Cloud from the dict that ``pctpu.cloud.to_numpy`` returns
-    (full capacity, padding included) — how tests feed pctpu and the port
-    identical inputs."""
+def from_numpy(d: dict, device: torch.device | str = "cuda") -> Cloud:
+    """Build a Cloud on ``device`` (the card unless asked otherwise) from the
+    dict that ``pctpu.cloud.to_numpy`` returns (full capacity, padding
+    included) — how tests feed pctpu and the port identical inputs."""
 
     def _t(a, dtype):
         return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)

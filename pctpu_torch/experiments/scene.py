@@ -69,7 +69,7 @@ def registration_tree(root: str, seed: int = 3) -> None:
         moved = xyz @ m[:3, :3].T.astype(np.float32) + m[:3, 3].astype(np.float32)
         moved = moved + rng.normal(0, 0.01, moved.shape).astype(np.float32)
         save_cloud_pcd(os.path.join(root, "clouds", f"{k:06d}.pcd"),
-                       make_cloud(moved, label=lab))
+                       make_cloud(moved, label=lab, device="cpu"))
 
     def guess(q: int, m: int, off: float) -> str:
         r = TREE_POSES[m] @ np.linalg.inv(TREE_POSES[q])

@@ -283,10 +283,11 @@ def save_cloud_pcd(path: str, cloud: Cloud, num_points: int | None = None) -> No
 
 
 def load_cloud_pcd(
-    path: str, capacity: int | None = None, device: torch.device | str = "cpu"
+    path: str, capacity: int | None = None, device: torch.device | str = "cuda"
 ) -> Cloud:
-    """Load a PCD into a Cloud on ``device``, padding to ``capacity`` if
-    given.  Missing XYZIRCT fields default to zero (e.g. plain XYZ files)."""
+    """Load a PCD into a Cloud on ``device`` (the card unless asked
+    otherwise), padding to ``capacity`` if given.  Missing XYZIRCT fields
+    default to zero (e.g. plain XYZ files)."""
     data, meta = read_pcd(path)
     n = meta["points"]
     xyz = np.stack([data["x"], data["y"], data["z"]], axis=1)

@@ -46,7 +46,7 @@ NVCC_FLAGS = (
 
 launch_counts: dict[str, int] = {
     "nn_prep": 0, "nn_pruned": 0, "nn_pruned_count": 0, "segment_sum4": 0, "nn_fused": 0,
-    "nn_variant": 0, "ground_sums": 0, "bev_raster": 0,
+    "nn_variant": 0, "ground_sums": 0, "bev_raster": 0, "segment_sum_walk": 0,
 }
 
 _lib: ctypes.CDLL | None = None
@@ -137,9 +137,10 @@ def library() -> ctypes.CDLL:
         lib.pctpu_nn_variant.restype = ctypes.c_int
         lib.pctpu_nn_fused.argtypes = [p, i64, p, p, i64, p, p, p]
         lib.pctpu_nn_fused.restype = ctypes.c_int
-        lib.pctpu_segment_sum4.argtypes = [p, p, i64, p, p]
-        lib.pctpu_segment_sum4.restype = ctypes.c_int
         f, i32 = ctypes.c_float, ctypes.c_int
+        for fn in (lib.pctpu_segment_sum, lib.pctpu_segment_sum_walk):
+            fn.argtypes = [p, p, p, i64, i32, f, f, f, f, p, i64, i32, p]
+            fn.restype = ctypes.c_int
         lib.pctpu_bev_raster.argtypes = [
             p, p, p, i64, i64, i32, i32, f, f, f, f, f, f, p, p, p, p, p,
         ]
@@ -149,6 +150,12 @@ def library() -> ctypes.CDLL:
 
 
 def stream_ptr(device: torch.device) -> int:
+    """PyTorch's current stream on ``device`` as a raw pointer.  The raw
+    getter skips building a ``Stream`` object, some microseconds a launch;
+    a torch without it takes the public way."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None and device.index is not None:
+        return raw(device.index)
     return torch.cuda.current_stream(device).cuda_stream
 
 

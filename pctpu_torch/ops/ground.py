@@ -73,36 +73,32 @@ def _belonging_grid(x: torch.Tensor, y: torch.Tensor, cfg: GroundConfig):
 
 def sector_sums_rows(
     sector: torch.Tensor, z: torch.Tensor, ground: torch.Tensor, cfg: GroundConfig
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """The in-order sector sums as segment-sum rows: (values (n, 4) f32,
-    seg (n,) int64) for :func:`pctpu_torch.ops.voxel.segment_sum_sorted`.
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The in-order sector sums as segment-sum rows: (values (n, 2) f32,
+    seg (n,) int32, order (n,) int64) for
+    :func:`pctpu_torch.ops.voxel.segment_sum_sorted`, n = B·P.
 
-    Segment ``b·S + s`` is sector s of cloud b: first a head row
-    (0, epsilon, 0, 0), then (z, 1, 0, 0) for each of its ground points in
-    point order (a stable sort).  A sequential sum from 0.0 then gives
-    ``((0 + z₁) + z₂) + …`` and ``((ε + 1) + 1) + …`` — the C++'s rounding
-    sequence (BatchMultiBevGen.cpp:135-136, 187-210).  pctpu adds exact
-    zeros for non-ground points, which change no bit; here they sort last,
-    outside every segment."""
+    ``values`` holds (z, 1) per point in point order; ``order`` is the
+    stable sort of the points by segment, so row i of the sums is
+    ``values[order[i]]`` and ``seg[i]`` its segment: ``b·S + s`` for a ground
+    point of cloud b in sector s, in point order inside a segment, and B·S
+    (past the last segment, so in none) for the others, which sort last.
+    Started at (0, epsilon), a sequential sum gives ``((0 + z₁) + z₂) + …``
+    and ``((ε + 1) + 1) + …`` — the C++'s rounding sequence
+    (BatchMultiBevGen.cpp:135-136, 187-210); a sector without ground points
+    keeps (0, ε).  pctpu adds exact zeros for non-ground points, which
+    change no bit."""
     b, p = sector.shape
-    nsec = cfg.grid_rows * cfg.grid_cols
+    nseg = b * cfg.grid_rows * cfg.grid_cols
+    if nseg >= 2**31:
+        raise ValueError(f"{nseg} sectors do not fit int32 segment ids")
     dev = sector.device
-    nseg = b * nsec
-    key_pts = torch.where(
-        ground,
-        torch.arange(b, device=dev)[:, None] * nsec + sector.long(),
-        nseg,
-    ).reshape(-1)
-    key = torch.cat([torch.arange(nseg, device=dev), key_pts])
-    order = torch.sort(key, stable=True).indices
-    head = torch.zeros((nseg, 4), dtype=torch.float32, device=dev)
-    head[:, 1] = cfg.count_epsilon
-    pts = torch.zeros((b * p, 4), dtype=torch.float32, device=dev)
-    pts[:, 0] = z.reshape(-1)
-    pts[:, 1] = 1.0
-    values = torch.cat([head, pts])[order].contiguous()
-    key_s = key[order]
-    return values, torch.where(key_s < nseg, key_s, -1)
+    first = torch.arange(b, dtype=torch.int32, device=dev)[:, None] * (nseg // b)
+    key = torch.where(ground, sector.to(torch.int32) + first, nseg).reshape(-1)
+    seg, order = torch.sort(key, stable=True)
+    values = torch.ones((b, p, 2), dtype=torch.float32, device=dev)
+    values[..., 0] = z
+    return values.reshape(-1, 2), seg, order
 
 
 def _grid_sums_bitexact(
@@ -111,9 +107,10 @@ def _grid_sums_bitexact(
     """(B, S, 2) sequential-rounding (z sum, count) per sector."""
     b = sector.shape[0]
     nsec = cfg.grid_rows * cfg.grid_cols
-    values, seg = sector_sums_rows(sector, z, ground, cfg)
-    sums = segment_sum_sorted(values, seg, count_as="ground_sums")
-    return sums[: b * nsec, :2].reshape(b, nsec, 2)
+    values, seg, order = sector_sums_rows(sector, z, ground, cfg)
+    sums = segment_sum_sorted(values, seg, init=(0.0, cfg.count_epsilon), n_out=b * nsec,
+                              order=order, count_as="ground_sums")
+    return sums.reshape(b, nsec, 2)
 
 
 def _grid_sums_tolerance(

@@ -10,8 +10,10 @@ flat voxel index.
 Points are stably sorted by voxel key, so each voxel's points form one run
 in input order.  The per-voxel sums are taken by ``segment_sum_sorted``:
 one sequential in-order sum per run, as pctpu's scatter-add takes them (D14).
-On CUDA that is the kernel ``csrc/segment_sum.cu``, because ``index_add_``
-sums with atomics in an order that changes from run to run.
+On CUDA that is the kernel ``csrc/segment_sum.cu`` (a warp per tile of 32
+rows, heads adding side by side, long runs carried on with their rows in
+flight), because ``index_add_`` sums with atomics in an order that changes
+from run to run.
 """
 
 from __future__ import annotations
@@ -21,52 +23,110 @@ import torch
 from pctpu_torch.ops import _cuda
 
 
-def segment_sum_sorted_reference(values: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+def segment_sum_sorted_reference(
+    values: torch.Tensor, seg: torch.Tensor, init=None, n_out: int | None = None,
+    order: torch.Tensor | None = None,
+) -> torch.Tensor:
     """Plain torch twin of the segment-sum kernel.
 
-    ``values`` (n, 4) f32; ``seg`` (n,) int64 segment ids, equal ids
-    contiguous, -1 for rows that join no segment.  Returns (n, 4): row s holds
-    the sum of segment s's rows, added one by one in row order starting from
-    0.0; rows past the last segment are zero.  Step k adds the k-th row of
-    every segment at once (one update per segment per step, so the order
-    inside each segment is the row order)."""
-    n = values.shape[0]
-    out = torch.zeros((n, 4), dtype=torch.float32, device=values.device)
-    valid = seg >= 0
-    i = torch.arange(n, device=values.device)
+    ``values`` (·, L) f32; ``seg`` (n,) integer segment ids, one per row:
+    row i is ``values[order[i]]`` (``values[i]`` without an ``order``).
+    Equal ids are contiguous; an id outside [0, ``n_out``) marks a row that
+    joins no segment.  Returns (``n_out``, L), ``n_out`` = n unless given:
+    row s holds ``init`` (L floats, zeros unless given) plus segment s's
+    rows, added one by one in row order; a row that no segment names holds
+    ``init``.  Step k adds the k-th row of every segment at once (one update
+    per segment per step, so the order inside each segment is the row
+    order)."""
+    n, lanes = seg.shape[0], values.shape[1]
+    dev = values.device
+    n_out = n if n_out is None else n_out
+    rows = values if order is None else values[order]
+    start = torch.zeros(lanes) if init is None else torch.tensor(init, dtype=torch.float32)
+    out = start.to(dev).repeat(n_out, 1)
+    seg = seg.long()
+    valid = (seg >= 0) & (seg < n_out)
+    seg = torch.where(valid, seg, -1)
+    i = torch.arange(n, device=dev)
     prev = torch.cat([seg.new_full((1,), -1), seg[:-1]])
     head = valid & (seg != prev)
     pos = i - torch.cummax(torch.where(head, i, 0), dim=0).values
     pos = torch.where(valid, pos, -1)
     for k in range(int(pos.max()) + 1 if n else 0):
-        rows = torch.nonzero(pos == k).squeeze(1)
-        out[seg[rows]] = out[seg[rows]] + values[rows]
+        at = torch.nonzero(pos == k).squeeze(1)
+        out[seg[at]] = out[seg[at]] + rows[at]
     return out
 
 
-def segment_sum_sorted(values: torch.Tensor, seg: torch.Tensor,
-                       count_as: str = "segment_sum4") -> torch.Tensor:
+def _segment_launcher(values, seg, init, n_out, order, count_as, walk=False, fill=True):
+    """Validate CUDA inputs of the segment-sum kernels and allocate the
+    output.  Returns (launch, out): each ``launch()`` makes the one C call
+    (the fill of ``out`` with ``init``, then the sums) and counts it under
+    ``count_as``.  ``walk`` takes the first design's entry; without ``fill``
+    rows that no segment names are left unwritten."""
+    dev = values.device
+    if dev.type != "cuda":
+        raise ValueError(f"the segment-sum kernel needs CUDA tensors, got {dev}")
+    n, lanes = seg.shape[0], values.shape[-1]
+    if lanes not in (2, 4):
+        raise ValueError(f"segment sums take rows of 2 or 4 lanes, got {lanes}")
+    _cuda.require(values, "values", torch.float32, (-1, lanes), dev)
+    _cuda.require(seg, "seg", torch.int32, (n,), dev)
+    if order is None:
+        if values.shape[0] != n:
+            raise ValueError(f"{values.shape[0]} rows for {n} segment ids")
+    else:
+        _cuda.require(order, "order", torch.int64, (n,), dev)
+    n_out = n if n_out is None else n_out
+    if n == 0 or n_out <= 0 or max(n, n_out, values.shape[0]) >= 2**31:
+        raise ValueError(f"segment sums: unsupported sizes n={n}, n_out={n_out}")
+    if values.data_ptr() % (4 * lanes):
+        raise ValueError("segment sums: values must be aligned to a row")
+    if init is not None and len(init) != lanes:
+        raise ValueError(f"init has {len(init)} values for {lanes} lanes")
+    start = (*(float(v) for v in init or ()), 0.0, 0.0, 0.0, 0.0)[:4]
+    out = torch.empty((n_out, lanes), dtype=torch.float32, device=dev)
+    lib = _cuda.library()
+    fn = lib.pctpu_segment_sum_walk if walk else lib.pctpu_segment_sum
+    order_ptr = None if order is None else order.data_ptr()
+
+    def launch():
+        rc = fn(values.data_ptr(), order_ptr, seg.data_ptr(), n, lanes, *start,
+                out.data_ptr(), n_out, int(fill), _cuda.stream_ptr(dev))
+        _cuda.check(rc, count_as)
+
+    return launch, out
+
+
+def segment_sum_sorted(
+    values: torch.Tensor, seg: torch.Tensor, init=None, n_out: int | None = None,
+    order: torch.Tensor | None = None, count_as: str = "segment_sum4", fill: bool = True,
+) -> torch.Tensor:
     """In-order per-segment sums (see :func:`segment_sum_sorted_reference`).
-    CUDA tensors launch the kernel (or raise); CPU tensors run the twin.
-    ``count_as`` names the launch count the launch adds to (the ground
-    marking's sector sums count as ``ground_sums``)."""
+    CUDA tensors launch the kernel (or raise) and need int32 ids, and an
+    ``order`` whose entries index rows of ``values`` (the kernel does not
+    check them); CPU tensors run the twin.  ``count_as`` names the launch count the launch adds to
+    (the ground marking's sector sums count as ``ground_sums``).  A caller
+    that reads no row but those its segments name passes ``fill=False``: on
+    the card such rows are then left unwritten, one launch less."""
     dev = values.device
     if dev.type == "cpu":
-        return segment_sum_sorted_reference(values, seg)
-    if dev.type != "cuda":
-        raise ValueError(f"segment_sum_sorted: unsupported device {dev}")
-    n = values.shape[0]
-    _cuda.require(values, "values", torch.float32, (n, 4), dev)
-    _cuda.require(seg, "seg", torch.int64, (n,), dev)
-    if n == 0:
-        raise ValueError("segment_sum_sorted: empty input")
-    if values.data_ptr() % 16:
-        raise ValueError("segment_sum_sorted: values must be 16-byte aligned")
-    out = torch.zeros((n, 4), dtype=torch.float32, device=dev)
-    rc = _cuda.library().pctpu_segment_sum4(
-        values.data_ptr(), seg.data_ptr(), n, out.data_ptr(), _cuda.stream_ptr(dev)
-    )
-    _cuda.check(rc, count_as)
+        return segment_sum_sorted_reference(values, seg, init, n_out, order)
+    launch, out = _segment_launcher(values, seg, init, n_out, order, count_as, fill=fill)
+    launch()
+    return out
+
+
+def segment_sum_walk(
+    values: torch.Tensor, seg: torch.Tensor, init=None, n_out: int | None = None,
+    order: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """:func:`segment_sum_sorted` by the first design's kernel (one thread
+    walks each segment), CUDA only: the card tests and ``chip_smoke.py`` hold
+    and time the two against each other; no pipeline calls it."""
+    launch, out = _segment_launcher(values, seg, init, n_out, order, "segment_sum_walk",
+                                    walk=True)
+    launch()
     return out
 
 
@@ -75,7 +135,7 @@ def voxel_segments(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The voxel grid's sort: rows (x, y, z, 1) of the valid points in
     ascending-voxel order (stable, so input order inside a voxel), their
-    voxel ids (-1 past the valid rows) and the voxel count (0-d int64) — the
+    voxel ids (int32, -1 past the valid rows) and the voxel count (0-d int64) — the
     inputs of :func:`segment_sum_sorted`."""
     dev = xyz.device
     inv = 1.0 / leaf
@@ -100,7 +160,7 @@ def voxel_segments(
     key_s, xyz_s, mask_s = key[order], xyz[order], mask[order]
     prev = torch.cat([key_s.new_full((1,), -1), key_s[:-1]])
     head = (key_s != prev) & mask_s
-    seg = torch.where(mask_s, torch.cumsum(head, dim=0) - 1, -1)
+    seg = torch.where(mask_s, torch.cumsum(head, dim=0, dtype=torch.int32) - 1, -1)
     values = torch.cat(
         [
             torch.where(mask_s[:, None], xyz_s, 0.0),
@@ -118,7 +178,8 @@ def voxel_downsample(
     a 0-d int64 tensor).  Centroids are compacted to the front in
     ascending-voxel order."""
     values, seg, nvox = voxel_segments(xyz, mask, leaf)
-    acc = segment_sum_sorted(values, seg)
+    # rows at and past nvox are masked below: no fill
+    acc = segment_sum_sorted(values, seg, fill=False)
     valid = torch.arange(xyz.shape[0], device=xyz.device) < nvox
     centroids = torch.where(
         valid[:, None], acc[:, :3] / torch.clamp_min(acc[:, 3], 1.0)[:, None], 0.0

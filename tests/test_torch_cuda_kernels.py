@@ -140,13 +140,57 @@ def test_nn_fused(dev):
     assert _bit_equal(tk.nn_1_fused(q, qm, t, tm), tk.nn_1_fused_reference(q, qm, t, tm))
 
 
+def _segment_rows(lengths, gaps, lanes, rng, dev):
+    """Runs of ``lengths`` rows under ascending ids (some ids name no row),
+    ``gaps[k]`` rows of -1 before run k and ``gaps[-1]`` after the last;
+    values spanning 1e-3..1e3, so that the order of the adds changes bits."""
+    seg, sid = [], 0
+    for k, n in enumerate(lengths):
+        seg += [-1] * gaps[k] + [sid] * n
+        sid += 1 + k % 3
+    seg = np.array(seg + [-1] * gaps[len(lengths)], np.int32)
+    vals = (rng.normal(size=(len(seg), lanes))
+            * 10.0 ** rng.integers(-3, 4, (len(seg), 1))).astype(np.float32)
+    return torch.from_numpy(vals).to(dev), torch.from_numpy(seg).to(dev), sid + 2
+
+
+def _segment_cases():
+    """(name, run lengths, rows of -1 before each run and after the last)."""
+    lengths = [1, 31, 32, 33, 64, 65, 2000]
+    return [
+        ("tile lengths", lengths, [0] * 8),
+        ("outside rows at the front, inside and at the end", lengths, [3, 0, 1, 0, 40, 0, 2, 5]),
+        # rows 31..64: opens on lane 31 of tile 0, closes on lane 0 of tile 2
+        ("from lane 31 to lane 0", [31, 34, 5], [0] * 4),
+        ("a run across four tiles, then single rows", [20, 100] + [1] * 40, [0] * 43),
+        ("n not a multiple of 32", [7, 50, 3], [0, 0, 0, 1]),
+        ("n = 1", [1], [0, 0]),
+        ("one row after outside rows", [1], [45, 0]),
+        ("all rows outside", [], [77]),
+        ("one segment", [5000], [0, 0]),
+    ]
+
+
+def _hold_segment_sums(values, seg, init, n_out, order=None):
+    """new = walk = twin, bit for bit, and a second run of the new kernel."""
+    want = voxel.segment_sum_sorted_reference(values, seg, init, n_out, order)
+    got = voxel.segment_sum_sorted(values, seg, init, n_out, order)
+    assert _bit_equal([got], [want])
+    assert _bit_equal([voxel.segment_sum_walk(values, seg, init, n_out, order)], [want])
+    assert _bit_equal([voxel.segment_sum_sorted(values, seg, init, n_out, order)], [got])
+
+
 @pytest.mark.cuda
 def test_segment_sum4(dev):
     rng = np.random.default_rng(7)
     xyz, mask = _cloud(rng, 40000, dev, 30.0)
     values, seg, _ = voxel.voxel_segments(xyz, mask, 0.2)
-    assert _bit_equal([voxel.segment_sum_sorted(values, seg)],
-                      [voxel.segment_sum_sorted_reference(values, seg)])
+    _hold_segment_sums(values, seg, None, None)
+    for name, lengths, gaps in _segment_cases():
+        for init in (None, (0.5, -2.0, 1e-3, 100.0)):
+            values, seg, n_out = _segment_rows(lengths, gaps, 4, rng, dev)
+            _hold_segment_sums(values, seg, init, n_out)
+            _hold_segment_sums(values, seg, init, max(n_out // 2, 1))  # ids past the output
 
 
 def _labeled_batch(dev, tmp_path):
@@ -180,6 +224,18 @@ def test_ground_sums(dev, tmp_path):
     _, gm = ground.mark_ground(ordered, params)
     g = (gm.reshape(gm.shape[0], -1) == 1)
     srow, scol = ground._belonging_grid(ordered.xyz[..., 0], ordered.xyz[..., 1], cfg)
-    values, seg = ground.sector_sums_rows(srow * cfg.grid_cols + scol, ordered.xyz[..., 2], g, cfg)
-    assert _bit_equal([voxel.segment_sum_sorted(values, seg, count_as="ground_sums")],
-                      [voxel.segment_sum_sorted_reference(values, seg)])
+    values, seg, order = ground.sector_sums_rows(srow * cfg.grid_cols + scol,
+                                                 ordered.xyz[..., 2], g, cfg)
+    init = (0.0, cfg.count_epsilon)
+    n_out = g.shape[0] * cfg.grid_rows * cfg.grid_cols
+    assert int((seg < n_out).sum()) == int(g.sum()) > 0
+    _hold_segment_sums(values, seg, init, n_out, order)
+    rng = np.random.default_rng(8)
+    for name, lengths, gaps in _segment_cases():
+        values, seg, n_out = _segment_rows(lengths, gaps, 2, rng, dev)
+        _hold_segment_sums(values, seg, init, n_out)
+        # the same rows, scattered and read through an order
+        perm = torch.from_numpy(rng.permutation(seg.shape[0])).to(dev)
+        scattered = torch.empty_like(values)
+        scattered[perm] = values
+        _hold_segment_sums(scattered, seg, init, n_out, perm)

@@ -63,7 +63,7 @@ def _scene_cloud(seed, capacity=1536):
     xyz[1::17, 2] = 0.0
     cloud = jcloud.make_cloud(xyz, label=np.concatenate(lab).astype(np.int32),
                               capacity=capacity)
-    return cloud, from_numpy(jcloud.to_numpy(cloud))
+    return cloud, from_numpy(jcloud.to_numpy(cloud), device="cpu")
 
 
 def test_from_numpy_and_config_round_trip():
@@ -143,6 +143,85 @@ def test_segment_sum_reference_is_sequential():
         if seg[r] >= 0:
             want[seg[r]] = want[seg[r]] + vals[r]  # f32, in row order
     np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def _run_rows(lengths, gaps, rng, lanes):
+    """Segment ids for runs of ``lengths`` rows with ascending, gappy ids and
+    ``gaps[k]`` rows of -1 before run k (one more entry: after the last),
+    and values spanning 1e-3..1e3 so that the order of the adds changes
+    bits."""
+    seg, sid = [], 0
+    for k, n in enumerate(lengths):
+        seg += [-1] * gaps[k] + [sid] * n
+        sid += 1 + k % 3  # ids 0, 1, 3, 6, 7, ...: some name no row
+    seg = np.array(seg + [-1] * gaps[len(lengths)], np.int32)
+    vals = (rng.normal(size=(len(seg), lanes))
+            * 10.0 ** rng.integers(-3, 4, (len(seg), 1))).astype(np.float32)
+    return vals, seg, sid + 2
+
+
+def _row_order_loop(vals, seg, init, n_out):
+    want = np.tile(np.asarray(init, np.float32), (n_out, 1))
+    for r in range(len(seg)):
+        if 0 <= seg[r] < n_out:
+            want[seg[r]] = want[seg[r]] + vals[r]  # f32, in row order
+    return want
+
+
+SEGMENT_CASES = {
+    "tile lengths": ([1, 31, 32, 33, 64, 65, 2000], [0] * 8),
+    "outside rows at the front, inside and at the end": ([1, 31, 32, 33, 64, 65, 2000],
+                                                         [3, 0, 1, 0, 40, 0, 2, 5]),
+    "one segment": ([2000], [0, 0]),
+    "one segment between outside rows": ([33], [7, 9]),
+    "single rows": ([1] * 70, [0] * 71),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SEGMENT_CASES))
+@pytest.mark.parametrize("lanes,init", [(4, None), (4, (0.5, -2.0, 1e-3, 100.0)),
+                                        (2, None), (2, (0.0, 0.01))])
+def test_segment_sum_twin_init_and_lanes(case, lanes, init):
+    """The twin with 2 and 4 lanes, an initial value and an output size of
+    its own against a numpy loop over the rows in order; an id at or past the
+    output size joins no segment; and the same sums through an ``order``."""
+    rng = np.random.default_rng(11)
+    vals, seg, n_out = _run_rows(*SEGMENT_CASES[case], rng, lanes)
+    start = (0.0,) * lanes if init is None else init
+    want = _row_order_loop(vals, seg, start, n_out)
+    got = voxel.segment_sum_sorted(_t(vals), _t(seg), init=init, n_out=n_out).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    assert (got[n_out - 1] == np.asarray(start, np.float32)).all()  # named by no row
+    cut = max(n_out // 2, 1)  # ids >= cut now join no segment
+    got = voxel.segment_sum_sorted(_t(vals), _t(seg), init=init, n_out=cut).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(_row_order_loop(vals, seg, start, cut)))
+    perm = rng.permutation(len(seg))
+    shuffled = np.empty_like(vals)
+    shuffled[perm] = vals  # row i of the sums is shuffled[perm[i]]
+    got = voxel.segment_sum_sorted(_t(shuffled), _t(seg), init=init, n_out=n_out,
+                                   order=_t(perm)).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def test_segment_sum_order_changes_bits():
+    """The cases above can tell a sequential sum from another order: summing
+    the longest run backwards gives other bits."""
+    vals, seg, n_out = _run_rows([2000], [0, 0], np.random.default_rng(11), 4)
+    want = _row_order_loop(vals, seg, (0.0,) * 4, n_out)
+    back = _row_order_loop(vals[::-1], seg, (0.0,) * 4, n_out)
+    assert (_bits(want[0]) != _bits(back[0])).any()
+
+
+@pytest.mark.parametrize("name", ["make_cloud", "from_numpy", "load_cloud_pcd"])
+def test_constructors_default_to_the_card(name):
+    """A library user's clouds land on the card unless they ask for the CPU."""
+    import inspect
+
+    import pctpu_torch.cloud
+    import pctpu_torch.io.pcd
+
+    fn = getattr(pctpu_torch.io.pcd if name == "load_cloud_pcd" else pctpu_torch.cloud, name)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 def test_eig2():

@@ -36,13 +36,13 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "hashes.json")
 
 def port(jc) -> "object":
     """A pctpu Cloud (one cloud) as a port Cloud."""
-    return from_numpy(jcloud.to_numpy(jc))
+    return from_numpy(jcloud.to_numpy(jc), device="cpu")
 
 
 def port_batch(jcs):
     """pctpu clouds stacked into a port Cloud with a (B,) count."""
     ds = [jcloud.to_numpy(c) for c in jcs]
-    one = [from_numpy(d) for d in ds]
+    one = [from_numpy(d, device="cpu") for d in ds]
     fields = {k: torch.stack([getattr(c, k) for c in one])
               for k in ("xyz", "intensity", "row", "col", "t", "label")}
     return one[0].replace(count=torch.tensor([d["count"] for d in ds]), **fields)
@@ -217,8 +217,9 @@ def _sector_inputs(seed, b=3, p=5000):
 
 
 def test_sector_sums_bitexact():
-    """The in-order sums (head row + sorted points, the segment-sum twin) are
-    bit-equal to pctpu's sequential scatter-add, per cloud of a batch."""
+    """The in-order sums (sorted points from (0, epsilon), the segment-sum
+    twin) are bit-equal to pctpu's sequential scatter-add, per cloud of a
+    batch."""
     cfg, sector, z, ground_ = _sector_inputs(0)
     got = ground._grid_sums_bitexact(torch.from_numpy(sector), torch.from_numpy(z),
                                      torch.from_numpy(ground_), cfg).numpy()
@@ -226,6 +227,34 @@ def test_sector_sums_bitexact():
         want = np.asarray(jground._grid_sums_bitexact(sector[bi], z[bi], ground_[bi],
                                                       JGroundConfig()))
         np.testing.assert_array_equal(got[bi].view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("seed", [2, 3])
+def test_sector_sums_rows_need_no_padding(seed):
+    """The segment-sum rows of the sector sums: one (z, 1) row a point, no
+    head rows; ids ascending with the non-ground points past the last
+    sector; a stable order.  Started at (0, epsilon) they give pctpu's bits,
+    a sector without ground points (0, epsilon) itself, and the batch equals
+    its clouds one by one."""
+    cfg, sector, z, ground_ = _sector_inputs(seed, b=2, p=3000)
+    nsec = cfg.grid_rows * cfg.grid_cols
+    args = [torch.from_numpy(a) for a in (sector, z, ground_)]
+    values, seg, order = ground.sector_sums_rows(*args, cfg)
+    assert values.shape == (2 * 3000, 2) and seg.dtype == torch.int32
+    assert (values[:, 1] == 1).all() and (seg[1:] >= seg[:-1]).all()
+    assert int((seg < 2 * nsec).sum()) == int(ground_.sum())
+    same = seg[1:] == seg[:-1]
+    assert (order[1:][same] > order[:-1][same]).all()  # point order inside a segment
+    got = ground._grid_sums_bitexact(*args, cfg).numpy()
+    eps = np.float32(cfg.count_epsilon)
+    for bi in range(2):
+        want = np.asarray(jground._grid_sums_bitexact(sector[bi], z[bi], ground_[bi],
+                                                      JGroundConfig()))
+        np.testing.assert_array_equal(got[bi].view(np.uint32), want.view(np.uint32))
+        empty = np.bincount(sector[bi][ground_[bi]], minlength=nsec) == 0
+        assert empty.any() and (got[bi][empty] == [0.0, eps]).all()
+        one = ground._grid_sums_bitexact(*(a[bi:bi + 1] for a in args), cfg).numpy()
+        np.testing.assert_array_equal(one[0].view(np.uint32), got[bi].view(np.uint32))
 
 
 def test_sector_sums_tolerance_window():
@@ -318,7 +347,7 @@ def test_golden_hashes_small_sensor():
     xyz = np.stack([r * np.cos(az), r * np.sin(az), z], 1).astype(np.float32)
     intensity = np.where(rng.random(n) < 0.2, -1.0, rng.random(n)).astype(np.float32)
     cloud = make_cloud(xyz, intensity=intensity, row=rng.integers(0, 16, n),
-                       col=rng.integers(0, 32, n), label=np.full(n, -2, np.int32))
+                       col=rng.integers(0, 32, n), label=np.full(n, -2, np.int32), device="cpu")
     ordered = ordering.get_ordered_cloud(cloud, SMALL)
     labeled, gm = ground.mark_ground(ordered, SMALL)
     want = _golden()
@@ -351,6 +380,7 @@ def test_golden_hashes_hdl64e():
         row=(slot // params.horizon_scan * mask).astype(np.int32),
         col=(slot % params.horizon_scan * mask).astype(np.int32),
         label=np.where(mask, -2, 0).astype(np.int32),
+        device="cpu",
     )
     assert ordering.is_grid_ordered(cloud, params)
     labeled, multi, single = preprocess.preprocess_cloud(cloud, params, assume_ordered=True)

@@ -74,7 +74,7 @@ def tree(tmp_path_factory):
         rot, t = _pose(yaw, shift)
         moved = (xyz @ rot.T + t + rng.normal(0, 0.01, xyz.shape)).astype(np.float32)
         tpcd.save_cloud_pcd(str(clouds / f"{k:06d}.pcd"),
-                            make_cloud(moved, label=lab, capacity=1024))
+                            make_cloud(moved, label=lab, capacity=1024, device="cpu"))
     match = root / "match_result.txt"
     match.write_text("".join(f"{q} {m} {g}\n" for q, m, g in PAIRS))
     return root, str(match), str(clouds)
@@ -169,7 +169,7 @@ def test_load_cloud_pcd_matches_pctpu(tmp_path, mode):
     else:
         jpcd.write_pcd(path, data, binary=mode == "binary")
     ref = jcloud.to_numpy(jpcd.load_cloud_pcd(path, capacity=64))
-    got = tpcd.load_cloud_pcd(path, capacity=64)
+    got = tpcd.load_cloud_pcd(path, capacity=64, device="cpu")
     assert got.count == ref["count"] == n
     for name in ("xyz", "intensity", "row", "col", "label"):
         np.testing.assert_array_equal(getattr(got, name).numpy(), ref[name])

@@ -61,7 +61,7 @@ def tree(tmp_path_factory):
         moved = (xyz @ rot.T + np.float32([tx, ty, 0])
                  + rng.normal(0, 0.01, xyz.shape)).astype(np.float32)
         tpcd.save_cloud_pcd(str(clouds / f"{k:06d}.pcd"),
-                            make_cloud(moved, label=lab, capacity=4096))
+                            make_cloud(moved, label=lab, capacity=4096, device="cpu"))
     match = root / "match_result.txt"
     match.write_text("".join(f"{q} {m} {g}\n" for q, m, g in PAIRS))
     return root, str(match), str(clouds)
