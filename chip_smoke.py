@@ -46,17 +46,27 @@ Phases, each of which raises on failure (the exit code is then not 0):
    fine ms and the NN passes per pair are printed;
 7. the fused unpruned 1-NN (``cuda_knn.nn_1_fused``) at 65,536 × 65,536
    (uniform ±70 m), 16,384² and on the unsorted fine-stage bucket, 5% of
-   queries and targets masked: 0 mismatches against its twin, and the
-   CUDA-event ms of the kernel, the twin and ``knn.nn_1``;
+   queries and targets masked: the new kernels (``csrc/nn_fused.cu``), the
+   first design's kernel (``nn_1_fused_v1``) and the twin bit for bit, and
+   a second run; then, in turns, each alone and with its wrapper (CUDA
+   events), per-kernel profiler times, the main kernel's grid, the twin,
+   ``knn.nn_1``, the bound and, at the two uniform sizes,
+   ``torch.cdist(q, t).min(1)``; exact ties (duplicate and mirrored
+   targets) and NaN and infinite coordinates at 1, 3 and one-a-tile target
+   splits;
 8. the argmin and tile-shape experiment
    (``pctpu_torch.experiments.nn_argmin --quick``): every mode and tile
    shape bit-equal to its twin before it is timed;
 9. ``batch_multi_bev_gen`` on a ray-cast HDL-64E drive (64 grid-ordered
    clouds, two raw clouds with duplicate cells, one over the grid's
-   capacity; ``pctpu_torch.experiments.scene``): the BEV raster and the
-   in-order ground sums bit-equal to their twins at B = 8;
+   capacity; ``pctpu_torch.experiments.scene``): the BEV raster (the new
+   kernels, the first design's and a second run) and the in-order ground
+   sums bit-equal to their twins at B = 8, the raster timed in turns with
+   the first design's, with its per-kernel times, the atomics sent and at
+   most 2 kernels + 1 memset a call;
    ``preprocess_batch`` timed with the tile kernel and, in turns, with the
-   walk in the sector sums' place; the CLI in both
+   walk in the sector sums' place, and with the first design's raster
+   kernels in the rasters' place; the CLI in both
    compat modes after a warm-up, printing clouds/s, its ``[TIME]`` lines,
    launches per batch, the writer and the largest ground sector; the
    tolerance tree byte-identical to the bit-exact tree, the card's tree to
@@ -116,8 +126,9 @@ def print_ptxas(path) -> dict[str, str]:
         if m:
             name = m.group(1)
             tpl = re.findall(r"Li(\d+)E", name)
-            short = re.search(r"(nn_pruned_kernel|nn_fused_kernel|segment_sum_tile_kernel"
+            short = re.search(r"(nn_pruned_kernel|nn_fused_(?:v1|prep|main|finish)_kernel|segment_sum_tile_kernel"
                               r"|segment_sum_walk_kernel|segment_fill_kernel"
+                              r"|bev_raster_v1_kernel|bev_expand_v1_kernel"
                               r"|bev_raster_kernel|bev_expand_kernel|nn_prep_kernel"
                               r"|nn_seed_kernel|nn_main_kernel|nn_finish_kernel)", name)
             counting = "ILb1E" in name
@@ -334,6 +345,133 @@ def nn_case(name: str, args, md, smi: str) -> dict:
     return out
 
 
+def raster_case(labeled, params, smi: str, ptxas: dict) -> dict:
+    """The BEV raster at the path's batch: the new kernels, the first design's
+    and the twin byte for byte, and the new ones against a second run; then,
+    in turns in this one call, the new C call alone and both wrappers (CUDA
+    events), per-kernel device ms and what a call puts on the card
+    (torch.profiler), the atomics each raster kernel sends, and the bound."""
+    from pctpu_torch.experiments.card import bound_ms, cuda_ms, profile_calls
+    from pctpu_torch.ops import bev
+
+    res = params.height_res
+    want = bev.fused_multi_single_bev_reference(labeled, res)
+    rasters = bev.fused_multi_single_bev(labeled, res)
+    err = compare("bev_raster (B = 8)", rasters, want)
+    compare("bev_raster (B = 8): first design", bev.fused_multi_single_bev_v1(labeled, res), want)
+    compare("bev_raster (B = 8): second run", bev.fused_multi_single_bev(labeled, res), rasters)
+    timed = {
+        "alone": bev._raster_launcher(labeled, res)[0],
+        "wrapper": lambda: bev.fused_multi_single_bev(labeled, res),
+        "v1 wrapper": lambda: bev.fused_multi_single_bev_v1(labeled, res),
+    }
+    ms = {k: [] for k in timed}
+    for k in ("alone", "wrapper", "v1 wrapper", "v1 wrapper", "wrapper", "alone"):
+        ms[k].append(cuda_ms(timed[k], reps=50))
+    ms = {k: min(v) for k, v in ms.items()}
+    new_prof = profile_calls(timed["wrapper"])
+    old_prof = profile_calls(timed["v1 wrapper"])
+    twin_ms = cuda_ms(lambda: bev.fused_multi_single_bev_reference(labeled, res), reps=5)
+    sent = {"new": bev.atomics_sent(labeled, res),
+           "first design": bev.atomics_sent(labeled, res, v1=True)}
+    # xyz and label (16 B a point) read once, both rasters (1 B a cell) written
+    bound = bound_ms(labeled.label.numel() * 16 + sum(r.numel() for r in rasters), 0)
+    regs = {k: v for k, v in ptxas.items() if k.startswith("bev_")}
+    print(f"  bev_raster: alone {ms['alone']:.4f} ms, with wrapper {ms['wrapper']:.4f} ms; first "
+          f"design with wrapper {ms['v1 wrapper']:.4f} ms (CUDA events, the least of two turns "
+          f"each); twin {twin_ms:.4f} ms; bound {bound[0]:.6f} ms ({bound[1]}), reached "
+          f"{bound[0] / ms['alone']:.4f}; a call puts {new_prof[0]} kernels + {new_prof[1]} "
+          f"memsets on the card (first design {old_prof[0]} + {old_prof[1]}); device ms "
+          f"(torch.profiler) { {k: round(v, 6) for k, v in {**old_prof[2], **new_prof[2]}.items()} }; "
+          f"atomics sent {sent}; ptxas {regs}; card {smi}")
+    if new_prof[0] > 2 or new_prof[1] > 1:
+        raise AssertionError("bev_raster: a call puts more than 2 kernels + 1 memset on the card")
+    return {"err": err, "ms": ms["alone"], "wrapper_ms": ms["wrapper"],
+            "v1_wrapper_ms": ms["v1 wrapper"], "plain_ms": twin_ms, "bound": bound}
+
+
+def fused_edge_cases(dev: torch.device) -> list:
+    """(name, (query, query_mask, target, target_mask)) of the fused 1-NN's
+    exact ties — duplicate targets a chunk, a tile and many tiles apart, the
+    first of them masked, and targets mirrored about the query — and of NaN
+    and infinite coordinates in unmasked targets and queries."""
+    rng = np.random.default_rng(12)
+    t = torch.from_numpy(rng.uniform(-70, 70, (9000, 3)).astype(np.float32)).to(dev)
+    q = torch.from_numpy(rng.uniform(-70, 70, (3000, 3)).astype(np.float32)).to(dev)
+    qm = torch.ones(3000, dtype=torch.bool, device=dev)
+    tm = torch.ones(9000, dtype=torch.bool, device=dev)
+    ties = t.clone()
+    ties[7] = torch.tensor([0.1, 0.2, 0.3], device=dev)  # nearest to the zero query, with its mirror
+    ties[[40, 45, 300, 2000, 8999]] = ties[7].clone()
+    ties[5000] = -ties[7]
+    tie_q = torch.cat([ties[[7, 45, 8999]], torch.zeros((1, 3), device=dev), q[:200]])
+    first_masked = tm.clone()
+    first_masked[[7, 40]] = False
+    bad_t, bad_q = t.clone(), q.clone()
+    bad_t[100, 1] = float("nan")
+    bad_t[4000, 0] = float("inf")
+    bad_t[8000, 2] = -float("inf")
+    bad_q[7, 2] = float("nan")
+    bad_q[9, 0] = float("inf")
+    return [("exact ties", (tie_q, qm[:204], ties, tm)),
+            ("exact ties, the first two masked", (tie_q, qm[:204], ties, first_masked)),
+            ("NaN and inf coordinates", (bad_q, qm, bad_t, tm))]
+
+
+def fused_case(name: str, args: tuple, smi: str, got=None, library: bool = False) -> dict:
+    """One shape of the fused unpruned 1-NN: the new kernels (``got`` where
+    the caller has run them already), the first design's kernel and the twin
+    bit for bit, and a second run; then, in turns in this one call, each C
+    call alone and with its wrapper (CUDA events), per-kernel device ms
+    (torch.profiler), the main kernel's grid, the twin, ``knn.nn_1``, the
+    bound (8 flop a pair on every pair) and, with ``library``,
+    ``torch.cdist(q, t).min(1)``."""
+    from pctpu_torch.experiments.card import bound_ms, cuda_ms, profile_calls
+    from pctpu_torch.ops import cuda_knn, knn
+
+    q, _, t, _ = args
+    want = cuda_knn.nn_1_fused_reference(*args)
+    got = cuda_knn.nn_1_fused(*args) if got is None else got
+    err = compare(name, got, want)
+    compare(f"{name}: first design", cuda_knn.nn_1_fused_v1(*args), want)
+    compare(f"{name}: second run", cuda_knn.nn_1_fused(*args), got)
+    xla = knn.nn_1(*args)
+    agree = float((xla[0] == got[0]).float().mean())
+    timed = {
+        "alone": cuda_knn._fused_launcher(*args)[0],
+        "v1 alone": cuda_knn._fused_v1_launcher(*args)[0],
+        "wrapper": lambda: cuda_knn.nn_1_fused(*args),
+        "v1 wrapper": lambda: cuda_knn.nn_1_fused_v1(*args),
+    }
+    ms = {k: [] for k in timed}
+    for k in ("alone", "v1 alone", "v1 alone", "alone",
+              "wrapper", "v1 wrapper", "v1 wrapper", "wrapper"):
+        ms[k].append(cuda_ms(timed[k], reps=10))
+    ms = {k: min(v) for k, v in ms.items()}
+    new_prof = profile_calls(timed["alone"], reps=10)
+    old_prof = profile_calls(timed["v1 alone"], reps=10)
+    twin_ms = cuda_ms(lambda: cuda_knn.nn_1_fused_reference(*args), reps=2, warmup=1)
+    xla_ms = cuda_ms(lambda: knn.nn_1(*args), reps=5)
+    bound = bound_ms(q.shape[0] * (13 + 8) + t.shape[0] * 13, 8 * q.shape[0] * t.shape[0])
+    grid = cuda_knn.fused_grid(q.shape[0], t.shape[0])
+    lib_ms = None
+    if library:
+        lib_ms = cuda_ms(lambda: torch.cdist(q, t).min(1), reps=3, warmup=1)
+        torch.cuda.empty_cache()
+    print(f"  {name}: alone {ms['alone']:.4f} ms, with wrapper {ms['wrapper']:.4f} ms; first design "
+          f"alone {ms['v1 alone']:.4f} ms, with wrapper {ms['v1 wrapper']:.4f} ms (CUDA events, the "
+          f"least of two turns each); twin {twin_ms:.4f} ms, knn.nn_1 {xla_ms:.4f} ms (it picks "
+          f"the same index for {agree:.6f} of queries); main grid {grid[0]} query tiles x "
+          f"{grid[1]} target splits = {grid[0] * grid[1]} blocks; a call puts {new_prof[0]} "
+          f"kernels + {new_prof[1]} memsets on the card; device ms (torch.profiler) "
+          f"{ {k: round(v, 6) for k, v in {**old_prof[2], **new_prof[2]}.items()} }; bound "
+          f"{bound[0]:.6f} ms ({bound[1]}), reached {bound[0] / ms['alone']:.4f} (first design "
+          f"{bound[0] / ms['v1 alone']:.4f})"
+          + (f"; torch.cdist(q, t).min(1) {lib_ms:.4f} ms" if library else "") + f"; card {smi}")
+    return {"err": err, "ms": ms["alone"], "plain_ms": twin_ms, "bound": bound,
+            "library_ms": lib_ms, "wrapper_ms": ms["wrapper"], "v1_ms": ms["v1 alone"]}
+
+
 def multi_bev_phase(dev: torch.device, smi: str, n_ordered: int = 64, ptxas: dict | None = None,
                     clock_mhz: float = 1980.0) -> list[dict]:
     """Phase 9 (module docstring).  Returns the ``kernels`` entries of the
@@ -341,11 +479,11 @@ def multi_bev_phase(dev: torch.device, smi: str, n_ordered: int = 64, ptxas: dic
     from pctpu_torch.cli import batch_multi_bev_gen as bev_cli
     from pctpu_torch.config import GroundConfig, get_sensor_params
     from pctpu_torch.experiments import oracle
-    from pctpu_torch.experiments.card import bound_ms, cuda_ms, profile_calls
+    from pctpu_torch.experiments.card import cuda_ms, profile_calls
     from pctpu_torch.experiments.scene import multi_bev_tree
     from pctpu_torch.io.pcd import read_pcd
     from pctpu_torch.io.png import read_gray_png
-    from pctpu_torch.ops import _cuda, bev, ground, voxel
+    from pctpu_torch.ops import _cuda, bev, ground, preprocess, voxel
     from pctpu_torch.ops.preprocess import _reorder_preordered, preprocess_batch
     from pctpu_torch.pipelines import multi_bev
     from pctpu_torch.runtime import native_io
@@ -361,7 +499,7 @@ def multi_bev_phase(dev: torch.device, smi: str, n_ordered: int = 64, ptxas: dic
           f"1 over capacity) generated in {time.perf_counter() - t0:.1f} s")
 
     # --- 9a. the kernels against their twins, B = 8 real clouds -----------
-    arrays = stack_batch([load_xyzirct_arrays(p, params)
+    arrays = stack_batch([load_xyzirct_arrays(p, params.grid_size, params=params)
                           for p in paths[:8]])
     clouds = multi_bev._to_device(arrays, dev)
     ordered = _reorder_preordered(clouds, params)
@@ -376,16 +514,8 @@ def multi_bev_phase(dev: torch.device, smi: str, n_ordered: int = 64, ptxas: dic
                      (values, seg, (0.0, cfg.count_epsilon), 8 * cfg.grid_rows * cfg.grid_cols,
                       order), "ground_sums", ptxas or {}, smi, clock_mhz)
     largest = sums["bound"]["longest"]
-    rasters = bev.fused_multi_single_bev(labeled, params.height_res)
-    bev_err = compare("bev_raster (B = 8)", rasters,
-                      bev.fused_multi_single_bev_reference(labeled, params.height_res))
-    bev_ms = cuda_ms(lambda: bev.fused_multi_single_bev(labeled, params.height_res), reps=20)
-    bev_ref_ms = cuda_ms(lambda: bev.fused_multi_single_bev_reference(labeled, params.height_res),
-                         reps=5)
-    # xyz and label (16 B a point) read once, both rasters (1 B a cell) written
-    bev_bound = bound_ms(labeled.label.numel() * 16 + sum(r.numel() for r in rasters), 0)
-    print(f"  bev_raster: kernel {bev_ms:.4f} ms, twin {bev_ref_ms:.4f} ms, bound "
-          f"{bev_bound[0]:.6f} ms ({bev_bound[1]}); card {smi}")
+    raster = raster_case(labeled, params, smi, ptxas or {})
+
     def with_walk(fn):
         """``fn()`` with the sector sums taken by the first design's walk."""
         real = ground.segment_sum_sorted
@@ -394,6 +524,15 @@ def multi_bev_phase(dev: torch.device, smi: str, n_ordered: int = 64, ptxas: dic
             return fn()
         finally:
             ground.segment_sum_sorted = real
+
+    def with_raster_v1(fn):
+        """``fn()`` with both rasters taken by the first design's kernels."""
+        real = preprocess.fused_multi_single_bev
+        preprocess.fused_multi_single_bev = bev.fused_multi_single_bev_v1
+        try:
+            return fn()
+        finally:
+            preprocess.fused_multi_single_bev = real
 
     for compat in ("bitexact", "tolerance"):
         def step(compat=compat):
@@ -410,6 +549,21 @@ def multi_bev_phase(dev: torch.device, smi: str, n_ordered: int = 64, ptxas: dic
             print(f"  preprocess_batch B = 8 (bitexact) with the walk kernel for the sector sums: "
                   f"{min(walk_ms):.4f} ms; with the tile kernel {dev_ms:.4f} ms (CUDA events, the "
                   f"least of two each, in turns); card {smi}")
+            # and with the first design's raster kernels in the rasters' place
+            _cuda.reset_launch_counts()
+            turns = {"new": [], "v1": []}
+            for k in ("new", "v1", "v1", "new"):
+                turns[k].append(cuda_ms(step, reps=10) if k == "new"
+                                else with_raster_v1(lambda: cuda_ms(step, reps=10)))
+            by_v1, by_new = with_raster_v1(step), step()
+            torch.cuda.synchronize()
+            require_launched(_cuda.launch_counts, ("bev_raster", "bev_raster_v1"),
+                             "preprocess_batch in turns")
+            if not all(torch.equal(a, b) for a, b in zip(by_v1[1:], by_new[1:])):
+                raise AssertionError("preprocess_batch: the two raster designs disagree")
+            print(f"  preprocess_batch B = 8 (bitexact) with the first design's raster kernels: "
+                  f"{min(turns['v1']):.4f} ms; with the new ones {min(turns['new']):.4f} ms (CUDA "
+                  f"events, the least of two each, in turns); card {smi}")
         _, multi, single = step()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -529,8 +683,9 @@ def multi_bev_phase(dev: torch.device, smi: str, n_ordered: int = 64, ptxas: dic
     return [
         {"name": "bev_raster", "route": "cuda", "source": "pctpu_torch/csrc/bev_raster.cu",
          "replaces": "pctpu/ops/bev.py:95", "launches": bev_launches,
-         "max_abs_err": bev_err, "ms": bev_ms, "plain_ms": bev_ref_ms,
-         "bound_ms": bev_bound[0], "bound_by": bev_bound[1], "library_ms": None},
+         "max_abs_err": raster["err"], "ms": raster["ms"], "plain_ms": raster["plain_ms"],
+         "bound_ms": raster["bound"][0], "bound_by": raster["bound"][1], "library_ms": None,
+         "wrapper_ms": raster["wrapper_ms"], "v1_wrapper_ms": raster["v1_wrapper_ms"]},
         sums_entry("ground_sums", "pctpu/ops/ground.py:113", sums_launches, sums),
     ]
 
@@ -545,11 +700,11 @@ def main() -> int:
     from pctpu_torch.cli import batch_top_part_registration as cli
     from pctpu_torch.cli import batch_whole_registration as whole_cli
     from pctpu_torch.experiments import nn_argmin
-    from pctpu_torch.experiments.card import (bound_ms, cuda_ms, nvidia_smi_line, profile_calls,
+    from pctpu_torch.experiments.card import (cuda_ms, nvidia_smi_line, profile_calls,
                                               sm_clock_mhz)
     from pctpu_torch.experiments.scene import (TREE_PAIRS, TREE_POSES, pose, registration_scene,
                                                registration_tree)
-    from pctpu_torch.ops import _cuda, cuda_knn, knn, voxel
+    from pctpu_torch.ops import _cuda, cuda_knn, voxel
     from pctpu_torch.ops.transform import transform_xyz
     from pctpu_torch.pipelines import registration
 
@@ -827,28 +982,22 @@ def main() -> int:
     torch.cuda.synchronize()
     fused_launches = _cuda.launch_counts["nn_fused"]
     require_launched({"nn_fused": fused_launches}, ("nn_fused",), "the nn_1_fused call")
-    print("fused 1-NN (K3) vs twin vs knn.nn_1 (ms per pass, CUDA events):")
-    fused_err = 0.0
-    fused_ms = {}
-    for k, (name, args) in enumerate(fused_cases):
-        got = fused_out if k == 0 else cuda_knn.nn_1_fused(*args)
-        fused_err = max(fused_err, compare(name, got, cuda_knn.nn_1_fused_reference(*args)))
-        xla = knn.nn_1(*args)
-        agree = float((xla[0] == got[0]).float().mean())
-        k_ms = cuda_ms(lambda: cuda_knn.nn_1_fused(*args), reps=10)
-        r_ms = cuda_ms(lambda: cuda_knn.nn_1_fused_reference(*args), reps=2, warmup=1)
-        x_ms = cuda_ms(lambda: knn.nn_1(*args), reps=5)
-        fused_ms[name] = (k_ms, r_ms, x_ms)
-        print(f"  {name}: kernel {k_ms:.4f} ms, twin {r_ms:.4f} ms, knn.nn_1 {x_ms:.4f} ms "
-              f"(knn.nn_1 picks the same index for {agree:.6f} of queries); card {smi}")
-    # the path's case: its bound (8 flops a pair on every pair) and torch.cdist(q, t).min(1)
-    fq, _, ft, _ = fused_cases[0][1]
-    fused_bound = bound_ms(fq.shape[0] * (13 + 8) + ft.shape[0] * 13,
-                           8 * fq.shape[0] * ft.shape[0])
-    fused_lib_ms = cuda_ms(lambda: torch.cdist(fq, ft).min(1), reps=3, warmup=1)
-    torch.cuda.empty_cache()
-    print(f"  {fused_cases[0][0]}: bound {fused_bound[0]:.6f} ms ({fused_bound[1]}), "
-          f"torch.cdist(q, t).min(1) {fused_lib_ms:.4f} ms; card {smi}")
+    print("fused 1-NN (K3): the new kernels (csrc/nn_fused.cu: prep, main grid of query tiles x "
+          "target splits, finish) and the first design's kernel against the twin, bit for bit; "
+          "ms per pass (CUDA events)")
+    fused = [fused_case(name, args, smi, got=fused_out if k == 0 else None, library=k < 2)
+             for k, (name, args) in enumerate(fused_cases)]
+    fused_err = max(c["err"] for c in fused)
+    for name, args in fused_edge_cases(dev):
+        want = cuda_knn.nn_1_fused_reference(*args)
+        fused_err = max(fused_err, compare(name, cuda_knn.nn_1_fused(*args), want))
+        compare(f"{name}: first design", cuda_knn.nn_1_fused_v1(*args), want)
+        for splits in (1, 3, 1 << 15):  # one split, ragged splits, one a tile
+            launch, idx, _ = cuda_knn._fused_launcher(*args, splits=splits)
+            launch()
+            compare(f"{name}: {cuda_knn.fused_grid(len(args[0]), len(args[2]), splits)[1]} "
+                    "target splits", [idx], [want[0]])
+    print(f"  ptxas { {k: v for k, v in ptxas.items() if k.startswith('nn_fused')} }")
 
     # --- 8. the argmin and tile-shape experiment (K4) ------------------------
     _cuda.reset_launch_counts()
@@ -871,7 +1020,7 @@ def main() -> int:
 
     # K1, the prep and K4's <128, 1024, prod> on the fine pass at thr 1 m
     fine = nn_ms["fine thr 1 m"]
-    big_fused = fused_ms[fused_cases[0][0]]
+    big_fused = fused[0]
     print(json.dumps({"kernels": [
         {"name": "nn_pruned", "route": "cuda", "source": "pctpu_torch/csrc/nn_pruned_warp.cu",
          "replaces": "pctpu/ops/pallas_knn.py:275", "launches": launches["nn_pruned"],
@@ -886,8 +1035,10 @@ def main() -> int:
         sums_entry("segment_sum4", "pctpu/ops/voxel.py:80", launches["segment_sum4"], seg_sums),
         {"name": "nn_fused", "route": "cuda", "source": "pctpu_torch/csrc/nn_fused.cu",
          "replaces": "pctpu/ops/pallas_knn.py:38", "launches": fused_launches,
-         "max_abs_err": fused_err, "ms": big_fused[0], "plain_ms": big_fused[1],
-         "bound_ms": fused_bound[0], "bound_by": fused_bound[1], "library_ms": fused_lib_ms},
+         "max_abs_err": fused_err, "ms": big_fused["ms"], "plain_ms": big_fused["plain_ms"],
+         "bound_ms": big_fused["bound"][0], "bound_by": big_fused["bound"][1],
+         "library_ms": big_fused["library_ms"], "wrapper_ms": big_fused["wrapper_ms"],
+         "v1_ms": big_fused["v1_ms"]},
         {"name": "nn_variant", "route": "cuda", "source": "pctpu_torch/csrc/nn_pruned.cu",
          "replaces": "scripts/exp_nn_argmin.py:118", "launches": variant_launches,
          "max_abs_err": max(exp["max_abs_err"], nn_err), "ms": fine["old_alone"],

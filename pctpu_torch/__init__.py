@@ -28,8 +28,14 @@ torch.set_float32_matmul_precision("highest")
 
 from pctpu_torch.cloud import Cloud, from_numpy, make_cloud  # noqa: E402
 from pctpu_torch.config import (  # noqa: E402
+    GroundConfig,
     IcpConfig,
+    MultiBevConfig,
     RegistrationConfig,
+    SensorParams,
+    SingleBevConfig,
+    get_sensor_params,
+    parse_sensor_type,
     registration_config_from,
 )
 
@@ -37,9 +43,15 @@ __version__ = "0.1.0"
 
 __all__ = [
     "Cloud",
+    "GroundConfig",
     "IcpConfig",
+    "MultiBevConfig",
     "RegistrationConfig",
+    "SensorParams",
+    "SingleBevConfig",
     "from_numpy",
+    "get_sensor_params",
     "make_cloud",
+    "parse_sensor_type",
     "registration_config_from",
 ]

@@ -24,7 +24,7 @@ import sys
 # one checkout's measurement, run with that checkout as the working
 # directory so that ``pctpu_torch`` is its package
 _RUN = r"""
-import contextlib, glob, io, json, os, re, shutil, sys, time
+import contextlib, glob, inspect, io, json, os, re, shutil, sys, time
 import torch
 from pctpu_torch.cli import batch_multi_bev_gen as cli
 from pctpu_torch.config import get_sensor_params
@@ -37,8 +37,11 @@ tree, warm, tag, checkout = sys.argv[1:5]
 card = nvidia_smi_line()
 params = get_sensor_params("HDL_64E")
 paths = sorted(glob.glob(os.path.join(tree, "keyframe_point_cloud", "*.pcd")))
-clouds = multi_bev._to_device(stack_batch([load_xyzirct_arrays(p, params) for p in paths[:8]]),
-                              torch.device("cuda", 0))
+# a checkout from before the loader took pctpu's (path, capacity, params=) form
+# takes (path, params)
+grid = (params.grid_size,) if "capacity" in inspect.signature(load_xyzirct_arrays).parameters else ()
+clouds = multi_bev._to_device(stack_batch([load_xyzirct_arrays(p, *grid, params=params)
+                                           for p in paths[:8]]), torch.device("cuda", 0))
 
 
 def run(root, compat):

@@ -105,8 +105,8 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 def profile_calls(fn, reps: int = 50) -> tuple[int, int, dict[str, float]]:
     """What one call of ``fn`` puts on the card, by torch.profiler over
-    ``reps`` calls after a warm-up: (kernels, copies and memsets, {kernel
-    name: device ms}), per call.  The counts are rounded: the profiler can
+    ``reps`` calls after a warm-up: (kernels, copies and memsets, {kernel,
+    copy or memset name: device ms}), per call.  The counts are rounded: the profiler can
     miss an event or two of a window.  It can also come back with no device
     event at all; such a window is taken again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
@@ -124,9 +124,8 @@ def profile_calls(fn, reps: int = 50) -> tuple[int, int, dict[str, float]]:
     copies = [e for e in events if e.name.startswith(("Memcpy", "Memset"))]
     ms: dict[str, float] = {}
     for e in events:
-        if e not in copies:
-            name = m.group(0) if (m := re.search(r"\w+_kernel", e.name)) else e.name
-            ms[name] = ms.get(name, 0.0) + e.device_time_total / 1e3 / reps
+        name = m.group(0) if (m := re.search(r"\w+_kernel", e.name)) else e.name
+        ms[name] = ms.get(name, 0.0) + e.device_time_total / 1e3 / reps
     return round((len(events) - len(copies)) / reps), round(len(copies) / reps), ms
 
 

@@ -47,6 +47,7 @@ NVCC_FLAGS = (
 launch_counts: dict[str, int] = {
     "nn_prep": 0, "nn_pruned": 0, "nn_pruned_count": 0, "segment_sum4": 0, "nn_fused": 0,
     "nn_variant": 0, "ground_sums": 0, "bev_raster": 0, "segment_sum_walk": 0,
+    "nn_fused_v1": 0, "bev_raster_v1": 0,
 }
 
 _lib: ctypes.CDLL | None = None
@@ -135,8 +136,12 @@ def library() -> ctypes.CDLL:
             p, p, p,
         ]
         lib.pctpu_nn_variant.restype = ctypes.c_int
-        lib.pctpu_nn_fused.argtypes = [p, i64, p, p, i64, p, p, p]
+        lib.pctpu_nn_fused.argtypes = [p, i64, p, p, i64, p, p, p, ctypes.c_int, p]
         lib.pctpu_nn_fused.restype = ctypes.c_int
+        lib.pctpu_nn_fused_splits.argtypes = [i64, i64, ctypes.c_int]
+        lib.pctpu_nn_fused_splits.restype = ctypes.c_int
+        lib.pctpu_nn_fused_v1.argtypes = [p, i64, p, p, i64, p, p, p]
+        lib.pctpu_nn_fused_v1.restype = ctypes.c_int
         f, i32 = ctypes.c_float, ctypes.c_int
         for fn in (lib.pctpu_segment_sum, lib.pctpu_segment_sum_walk):
             fn.argtypes = [p, p, p, i64, i32, f, f, f, f, p, i64, i32, p]
@@ -145,6 +150,10 @@ def library() -> ctypes.CDLL:
             p, p, p, i64, i64, i32, i32, f, f, f, f, f, f, p, p, p, p, p,
         ]
         lib.pctpu_bev_raster.restype = ctypes.c_int
+        lib.pctpu_bev_raster_v1.argtypes = [
+            p, p, p, i64, i64, i32, i32, f, f, f, f, f, f, p, p, p, p, p, p,
+        ]
+        lib.pctpu_bev_raster_v1.restype = ctypes.c_int
         _lib = lib
     return _lib
 

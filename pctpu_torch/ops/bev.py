@@ -12,8 +12,10 @@ Reference semantics (reference/BatchMultiBevGen.cpp:261-373):
 does not depend on the order of the updates, so they are deterministic on
 any device.  ``fused_multi_single_bev`` computes both in one pass; on CUDA it
 is the hand-written kernel ``csrc/bev_raster.cu`` (pctpu's counterpart is a
-TPU-shaped double sort with a Hillis-Steele OR scan), and the two torch ops
-are its plain twin.  Every op takes one cloud or a batch (leading axis).
+TPU-shaped double sort with a Hillis-Steele OR scan): one memset and two
+kernels a call.  The two torch ops are its plain twin, and
+``fused_multi_single_bev_v1`` the first design's kernels, for the card
+tests.  Every op takes one cloud or a batch (leading axis).
 """
 
 from __future__ import annotations
@@ -98,6 +100,66 @@ def fused_multi_single_bev_reference(
     return multi_bev(cloud, height_res, multi_cfg), single_bev(cloud, single_cfg)
 
 
+def _raster_inputs(cloud: Cloud, multi_cfg: MultiBevConfig, single_cfg: SingleBevConfig):
+    """Validate a CUDA cloud for the raster kernels.  Returns (xyz, label,
+    count (B,) int64 on the card, out) with ``out`` undoing the batch axis."""
+    dev = cloud.device
+    if dev.type != "cuda":
+        raise ValueError(f"the bev_raster kernels need CUDA tensors, got {dev}")
+    # not _batched: the kernels test a point against its cloud's count
+    # themselves, so no valid mask is built
+    batched = cloud.xyz.dim() == 3
+    xyz, label = (cloud.xyz, cloud.label) if batched else (cloud.xyz[None], cloud.label[None])
+    b, p = label.shape
+    count = cloud.count
+    if isinstance(count, torch.Tensor):
+        count = count.to(device=dev, dtype=torch.int64).reshape(b)
+    else:
+        count = torch.full((b,), int(count), dtype=torch.int64, device=dev)
+    _cuda.require(xyz, "xyz", torch.float32, (b, p, 3), dev)
+    _cuda.require(label, "label", torch.int32, (b, p), dev)
+    return xyz, label, count, (lambda a: a) if batched else (lambda a: a[0])
+
+
+def _raster_launcher(cloud: Cloud, height_res: float,
+                     multi_cfg: MultiBevConfig = MultiBevConfig(),
+                     single_cfg: SingleBevConfig = SingleBevConfig(),
+                     counter: torch.Tensor | None = None, v1: bool = False):
+    """Validate a CUDA cloud for ``csrc/bev_raster.cu`` and allocate its
+    outputs and scratch.  Returns (launch, multi, single): each ``launch()``
+    puts one call's work on the stream — the memset and the two kernels, or
+    with ``v1`` the first design's two kernels on scratch the launcher has
+    zeroed, so that a second ``launch()`` needs a new launcher — and counts
+    one ``bev_raster`` (``bev_raster_v1``).  ``counter`` (a zeroed int64 CUDA
+    tensor) receives the atomics the raster kernel sends."""
+    if not fused_bev_compatible(multi_cfg, single_cfg):
+        raise ValueError("fused raster needs matching multi/single BEV grid geometry")
+    xyz, label, count, out = _raster_inputs(cloud, multi_cfg, single_cfg)
+    dev = xyz.device
+    b, p = label.shape
+    s, nl = multi_cfg.mat_size, multi_cfg.num_layers
+    if v1:
+        scratch = [torch.zeros((b, s * s), dtype=torch.int32, device=dev) for _ in range(2)]
+    else:
+        scratch = [torch.empty((b, 2, s * s), dtype=torch.int32, device=dev)]
+    multi = torch.empty((b, nl, s, s), dtype=torch.uint8, device=dev)
+    single = torch.empty((b, s, s), dtype=torch.uint8, device=dev)
+    lib = _cuda.library()
+    fn, name = (lib.pctpu_bev_raster_v1, "bev_raster_v1") if v1 else \
+        (lib.pctpu_bev_raster, "bev_raster")
+    counter_ptr = None if counter is None else counter.data_ptr()
+
+    def launch():
+        rc = fn(xyz.data_ptr(), label.data_ptr(), count.data_ptr(), b, p, s, nl,
+                multi_cfg.max_range, multi_cfg.interval, height_res,
+                multi_cfg.lidar_to_ground_height, single_cfg.lidar_to_ground_height,
+                single_cfg.height_scale, *(t.data_ptr() for t in scratch), multi.data_ptr(),
+                single.data_ptr(), counter_ptr, _cuda.stream_ptr(dev))
+        _cuda.check(rc, name)
+
+    return launch, out(multi), out(single)
+
+
 def fused_multi_single_bev(
     cloud: Cloud, height_res: float,
     multi_cfg: MultiBevConfig = MultiBevConfig(),
@@ -106,33 +168,35 @@ def fused_multi_single_bev(
     """Both flagship rasters in one pass: exactly ``(multi_bev(...),
     single_bev(...))``.  CUDA tensors launch ``csrc/bev_raster.cu`` (or
     raise); CPU tensors run the twin."""
-    if not fused_bev_compatible(multi_cfg, single_cfg):
-        raise ValueError("fused raster needs matching multi/single BEV grid geometry")
-    dev = cloud.device
-    if dev.type == "cpu":
+    if cloud.device.type == "cpu":
+        if not fused_bev_compatible(multi_cfg, single_cfg):
+            raise ValueError("fused raster needs matching multi/single BEV grid geometry")
         return fused_multi_single_bev_reference(cloud, height_res, multi_cfg, single_cfg)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_multi_single_bev: unsupported device {dev}")
-    xyz, label, _, out = _batched(cloud)
-    b, p = label.shape
-    s, nl = multi_cfg.mat_size, multi_cfg.num_layers
-    count = cloud.count
-    if isinstance(count, torch.Tensor):
-        count = count.to(device=dev, dtype=torch.int64).reshape(b)
-    else:
-        count = torch.full((b,), int(count), dtype=torch.int64, device=dev)
-    _cuda.require(xyz, "xyz", torch.float32, (b, p, 3), dev)
-    _cuda.require(label, "label", torch.int32, (b, p), dev)
-    occ = torch.zeros((b, s * s), dtype=torch.int32, device=dev)
-    hgt = torch.zeros((b, s * s), dtype=torch.int32, device=dev)
-    multi = torch.empty((b, nl, s, s), dtype=torch.uint8, device=dev)
-    single = torch.empty((b, s, s), dtype=torch.uint8, device=dev)
-    rc = _cuda.library().pctpu_bev_raster(
-        xyz.data_ptr(), label.data_ptr(), count.data_ptr(), b, p, s, nl,
-        multi_cfg.max_range, multi_cfg.interval, height_res,
-        multi_cfg.lidar_to_ground_height, single_cfg.lidar_to_ground_height,
-        single_cfg.height_scale, occ.data_ptr(), hgt.data_ptr(),
-        multi.data_ptr(), single.data_ptr(), _cuda.stream_ptr(dev),
-    )
-    _cuda.check(rc, "bev_raster")
-    return out(multi), out(single)
+    launch, multi, single = _raster_launcher(cloud, height_res, multi_cfg, single_cfg)
+    launch()
+    return multi, single
+
+
+def fused_multi_single_bev_v1(
+    cloud: Cloud, height_res: float,
+    multi_cfg: MultiBevConfig = MultiBevConfig(),
+    single_cfg: SingleBevConfig = SingleBevConfig(),
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fused_multi_single_bev` by the first design's kernels
+    (``pctpu_bev_raster_v1``: two scratch tensors zeroed by ``torch.zeros``,
+    one thread a point with its own atomics, one thread a cell), kept so
+    that the card tests and ``chip_smoke.py`` can hold old, new and twin in
+    one call.  CUDA tensors only."""
+    launch, multi, single = _raster_launcher(cloud, height_res, multi_cfg, single_cfg, v1=True)
+    launch()
+    return multi, single
+
+
+def atomics_sent(cloud: Cloud, height_res: float,
+                   multi_cfg: MultiBevConfig = MultiBevConfig(),
+                   single_cfg: SingleBevConfig = SingleBevConfig(), v1: bool = False) -> int:
+    """The global atomics one call's raster kernel sends for this cloud (the
+    first design's with ``v1``), from the kernel's own count (synchronises)."""
+    counter = torch.zeros((1,), dtype=torch.int64, device=cloud.device)
+    _raster_launcher(cloud, height_res, multi_cfg, single_cfg, counter, v1)[0]()
+    return int(counter.item())

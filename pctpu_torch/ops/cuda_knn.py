@@ -52,7 +52,13 @@ returns the winner's d² re-derived from the f32 coordinates.
 ``_nn_kernel`` of ``pallas_nn_1``): the unpruned 1-NN on the score
 |t|² − 2q·t with pctpu's semantics — first minimum, masked targets at
 |t|² = 3e38, d² re-derived, +inf where the query or its winner is masked
-(the index is kept).  Its twin is ``nn_1_fused_reference``.
+(the index is kept).  One call is three launches: a prep that packs the
+target as float4 (twin ``prepare_fused_target_reference``), the main grid of
+query tiles × target splits, and a finish.  Its twin is
+``nn_1_fused_reference``; ``nn_1_fused_v1`` is the first design's kernel, for
+the card tests.  Where a coordinate is NaN or infinite a score is NaN, and a
+NaN score never wins; pctpu's kernel instead loses every target of the
+tile (``tt``) that holds one, so its answer there depends on its tile size.
 """
 
 from __future__ import annotations
@@ -74,6 +80,10 @@ TQ = 128
 _BIG = 3e38
 # the main launch's grid holds one y row per target tile
 _MAX_TARGETS = 65535 * TT
+# nn_1_fused's target tile and the queries of a block (csrc/nn_fused.cu's
+# kTile, kQueries)
+FUSED_TILE = 512
+FUSED_QUERIES = 512
 
 # nn_1_pruned_variant: the script's mode names and the kernel's MODE
 MODES = {"prod": 0, "explicit2": 1, "onehot_exact": 2, "onehot_mxu": 2, "bf16": 3}
@@ -412,6 +422,19 @@ def _finish_fused(query, query_mask, target, target_mask, idx):
     return idx.to(torch.int32), torch.where(ok, d2, inf)
 
 
+def prepare_fused_target_reference(target: torch.Tensor,
+                                   target_mask: torch.Tensor) -> torch.Tensor:
+    """Plain torch twin of the fused kernel's prep (``nn_fused_prep_kernel``):
+    the target as (⌈T / 512⌉·512, 4) f32 rows x, y, z, |t|² with
+    |t|² = fma(tz, tz, fma(ty, ty, tx·tx)), 3e38 where masked, and padding
+    rows (0, 0, 0, 3e38) — pctpu's ``_plane_layout`` planes, a point a row."""
+    tx, ty, tz = target.unbind(1)
+    t_sq = torch.where(target_mask, _fma_f32(tz, tz, _fma_f32(ty, ty, tx * tx)), _BIG)
+    packed = _pad_rows(torch.cat([target, t_sq[:, None]], dim=1), FUSED_TILE)
+    packed[target.shape[0]:, 3] = _BIG
+    return packed
+
+
 def nn_1_fused_reference(
     query: torch.Tensor,
     query_mask: torch.Tensor,
@@ -419,25 +442,71 @@ def nn_1_fused_reference(
     target_mask: torch.Tensor,
     block: int = 1 << 23,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain torch twin of the fused kernel, blocked over queries
+    """Plain torch twin of the fused kernels, blocked over queries
     (``block`` bounds the (queries × targets) elements held at once).  The
-    score is the kernel's: cross = fma(qz, tz, fma(qy, ty, qx·tx)),
+    score is the kernels': cross = fma(qz, tz, fma(qy, ty, qx·tx)),
     |t|² = fma(tz, tz, fma(ty, ty, tx·tx)) (3e38 where masked) and
     |t|² − 2·cross, whose f32 subtraction is the correctly rounded
-    fma(−2, cross, |t|²) because 2·cross is exact.  ``torch.min`` returns
-    the first minimum; a minimum not below 3e38 keeps index 0."""
+    fma(−2, cross, |t|²) because 2·cross is exact.  A NaN score (a NaN or
+    infinite coordinate) never wins, as under the kernels' strict ``<``;
+    ``torch.min`` returns the first minimum; a minimum not below 3e38 keeps
+    index 0."""
     nq, nt = query.shape[0], target.shape[0]
     big = torch.tensor(_BIG, dtype=torch.float32, device=query.device)
-    tx, ty, tz = target.unbind(1)
-    t_sq = torch.where(target_mask, _fma_f32(tz, tz, _fma_f32(ty, ty, tx * tx)), big)
+    tx, ty, tz, t_sq = prepare_fused_target_reference(target, target_mask)[:nt].unbind(1)
     rows = max(1, block // max(nt, 1))
     idx = torch.zeros((nq,), dtype=torch.int64, device=query.device)
     for s in range(0, nq, rows):
         qx, qy, qz = (c[:, None] for c in query[s : s + rows].unbind(1))
         cross = _fma_f32(qz, tz, _fma_f32(qy, ty, qx * tx))
-        best, arg = torch.min(t_sq - 2.0 * cross, dim=1)
+        score = t_sq - 2.0 * cross
+        best, arg = torch.min(torch.where(score.isnan(), float("inf"), score), dim=1)
         idx[s : s + rows] = torch.where(best < big, arg, 0)
     return _finish_fused(query, query_mask, target, target_mask, idx)
+
+
+def _fused_inputs(name, query, query_mask, target, target_mask):
+    dev = query.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: the kernel needs CUDA tensors, got {dev}")
+    nq, nt = query.shape[0], target.shape[0]
+    _cuda.require(query, "query", torch.float32, (-1, 3), dev)
+    _cuda.require(query_mask, "query_mask", torch.bool, (nq,), dev)
+    _cuda.require(target, "target", torch.float32, (-1, 3), dev)
+    _cuda.require(target_mask, "target_mask", torch.bool, (nt,), dev)
+    if nq == 0 or nt == 0 or nt >= 2**31 - FUSED_TILE:
+        raise ValueError(f"{name}: unsupported sizes Q={nq}, T={nt}")
+    return dev, nq, nt
+
+
+def _fused_launcher(query, query_mask, target, target_mask, splits: int = 0):
+    """Validate CUDA inputs for ``csrc/nn_fused.cu`` and allocate its output
+    and scratch.  Returns (launch, idx, packed): each ``launch()`` runs the
+    prep, main and finish kernels and counts one ``nn_fused``; ``packed`` is
+    the prep kernel's output.  ``splits`` > 0 fixes the main grid's target
+    splits (0: the C side picks them, :func:`fused_grid`)."""
+    dev, nq, nt = _fused_inputs("nn_1_fused", query, query_mask, target, target_mask)
+    packed = torch.empty((-(-nt // FUSED_TILE) * FUSED_TILE, 4), dtype=torch.float32, device=dev)
+    keys = torch.empty((nq,), dtype=torch.int64, device=dev)
+    idx = torch.empty((nq,), dtype=torch.int32, device=dev)
+    fn = _cuda.library().pctpu_nn_fused
+
+    def launch():
+        rc = fn(query.data_ptr(), nq, target.data_ptr(), target_mask.data_ptr(), nt,
+                packed.data_ptr(), keys.data_ptr(), idx.data_ptr(), splits,
+                _cuda.stream_ptr(dev))
+        _cuda.check(rc, "nn_fused")
+
+    return launch, idx, packed
+
+
+def fused_grid(nq: int, nt: int, splits: int = 0) -> tuple[int, int]:
+    """The main kernel's grid for Q queries and T targets on the current
+    card: (query tiles, target splits)."""
+    got = _cuda.library().pctpu_nn_fused_splits(nq, nt, splits)
+    if got <= 0:
+        raise ValueError(f"nn_1_fused: unsupported sizes Q={nq}, T={nt}")
+    return -(-nq // FUSED_QUERIES), got
 
 
 def nn_1_fused(
@@ -449,23 +518,33 @@ def nn_1_fused(
     """Unpruned fused 1-NN, the port of ``pallas_nn_1``: (index (Q,) int32,
     d² (Q,) f32).  CUDA tensors launch ``csrc/nn_fused.cu`` (or raise); CPU
     tensors run :func:`nn_1_fused_reference`."""
-    dev = query.device
-    if dev.type == "cpu":
+    if query.device.type == "cpu":
         return nn_1_fused_reference(query, query_mask, target, target_mask)
-    if dev.type != "cuda":
-        raise ValueError(f"nn_1_fused: unsupported device {dev}")
-    nq, nt = query.shape[0], target.shape[0]
-    _cuda.require(query, "query", torch.float32, (-1, 3), dev)
-    _cuda.require(query_mask, "query_mask", torch.bool, (nq,), dev)
-    _cuda.require(target, "target", torch.float32, (-1, 3), dev)
-    _cuda.require(target_mask, "target_mask", torch.bool, (nt,), dev)
-    if nq == 0 or nt == 0 or nt >= 2**31:
-        raise ValueError(f"nn_1_fused: unsupported sizes Q={nq}, T={nt}")
+    launch, idx, _ = _fused_launcher(query, query_mask, target, target_mask)
+    launch()
+    return _finish_fused(query, query_mask, target, target_mask, idx)
+
+
+def _fused_v1_launcher(query, query_mask, target, target_mask):
+    """As :func:`_fused_launcher` for the first design's one kernel
+    (``pctpu_nn_fused_v1``); counts ``nn_fused_v1``.  Returns (launch, idx)."""
+    dev, nq, nt = _fused_inputs("nn_1_fused_v1", query, query_mask, target, target_mask)
     val = torch.empty((nq,), dtype=torch.float32, device=dev)
     idx = torch.empty((nq,), dtype=torch.int32, device=dev)
-    rc = _cuda.library().pctpu_nn_fused(
-        query.data_ptr(), nq, target.data_ptr(), target_mask.data_ptr(), nt,
-        val.data_ptr(), idx.data_ptr(), _cuda.stream_ptr(dev),
-    )
-    _cuda.check(rc, "nn_fused")
+    fn = _cuda.library().pctpu_nn_fused_v1
+
+    def launch():
+        rc = fn(query.data_ptr(), nq, target.data_ptr(), target_mask.data_ptr(), nt,
+                val.data_ptr(), idx.data_ptr(), _cuda.stream_ptr(dev))
+        _cuda.check(rc, "nn_fused_v1")
+
+    return launch, idx
+
+
+def nn_1_fused_v1(query, query_mask, target, target_mask):
+    """:func:`nn_1_fused` by the first design's kernel, kept so that the card
+    tests and ``chip_smoke.py`` can hold old, new and twin in one call.
+    CUDA tensors only."""
+    launch, idx = _fused_v1_launcher(query, query_mask, target, target_mask)
+    launch()
     return _finish_fused(query, query_mask, target, target_mask, idx)

@@ -63,6 +63,10 @@ class MultiBevOutputs:
     # writes overlap device compute instead of adding serially
     loop_wall_ms: float = 0.0
 
+    @property
+    def wall_ms_per_cloud(self) -> float:
+        return self.loop_wall_ms / self.num_clouds if self.num_clouds else 0.0
+
 
 def _reset_dir(path: str, resume: bool) -> None:
     """Recreate an output dir (the reference shells out rm -rf + mkdir -p,
@@ -149,7 +153,7 @@ def run_multi_bev(
         def _load(f):
             # the layout check runs on the producer thread, overlapped with
             # the device
-            a = load_xyzirct_arrays(f, params)
+            a = load_xyzirct_arrays(f, params.grid_size, params=params)
             a["_grid_ordered"] = arrays_grid_ordered(a, params)
             return a
 

@@ -34,16 +34,21 @@ def list_pcd_files(path: str) -> list[str]:
     return sorted(names)
 
 
-def load_xyzirct_arrays(path: str, params: SensorParams) -> dict[str, np.ndarray]:
-    """Load one pcd into SoA numpy arrays zero-padded to the sensor grid's
-    size, in their on-disk widths.  A cloud larger than the grid is
-    host-compacted to its per-cell last-wins winners
-    (``ordering.compact_last_wins``) instead of truncated, so the device
-    ordering reproduces the reference's getOrderedCloud of the FULL cloud."""
-    capacity = params.grid_size
+def load_xyzirct_arrays(
+    path: str, capacity: int, params: SensorParams | None = None
+) -> dict[str, np.ndarray]:
+    """Load one pcd into SoA numpy arrays zero-padded to ``capacity``, in
+    their on-disk widths.
+
+    With ``params``, a cloud larger than ``capacity`` is host-compacted to
+    its per-grid-cell last-wins winners (``ordering.compact_last_wins``)
+    instead of truncated, so the device ordering reproduces the reference's
+    getOrderedCloud of the FULL cloud.  Without ``params`` (callers whose
+    capacity comes from the actual point counts) an oversized cloud
+    truncates to its first ``capacity`` points."""
     data, meta = read_pcd(path)
     n_raw = meta["points"]
-    if n_raw > capacity:
+    if params is not None and n_raw > capacity:
         data, n_raw = compact_last_wins(data, n_raw, params)
     n = min(n_raw, capacity)
     # narrow on-disk widths: the device widens after transfer

@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from pctpu_torch.config import SensorParams
+from pctpu_torch.cloud import Cloud
+from pctpu_torch.config import MultiBevConfig, SensorParams, SingleBevConfig
 from pctpu_torch.experiments.scene import multi_bev_tree
 from pctpu_torch.ops import bev, ground, ordering
 from pctpu_torch.ops import cuda_knn as tk
@@ -132,12 +133,74 @@ def test_nn_variant(dev):
                               twin(*args, max_distance=md)), (tq, tt, mode, md)
 
 
+def _fused_cases(dev):
+    """(name, (query, query_mask, target, target_mask)) of the fused 1-NN's
+    edge cases."""
+    rng = np.random.default_rng(4)
+    cases = [(f"Q = {nq}, T = {nt}", (*_cloud(rng, nq, dev, 70.0), *_cloud(rng, nt, dev, 70.0)))
+             for nq, nt in ((3000, 9000), (1, 1), (255, 257), (256, 256), (257, 255), (1, 9000),
+                            (3000, 1), (9000, 3000))]
+    q, qm, t, tm = cases[0][1]
+    cases.append(("all targets masked", (q, qm, t, torch.zeros_like(tm))))
+    cases.append(("all queries masked", (q, torch.zeros_like(qm), t, tm)))
+    # duplicates in one chunk, one tile, and tiles apart (other splits)
+    dup = t.clone()
+    dup[[40, 45, 300, 2000, 8999]] = dup[7].clone()
+    on_targets = torch.cat([dup[[7, 45, 8999]], q[:200]])
+    cases.append(("duplicate targets", (on_targets, torch.ones(203, dtype=torch.bool, device=dev),
+                                        dup, tm | (torch.arange(9000, device=dev) == 7))))
+    masked_first = tm.clone()
+    masked_first[[7, 40]] = False
+    cases.append(("duplicate targets, the first two masked", (on_targets, qm[:203], dup,
+                                                              masked_first)))
+    # mirrored about the query: equal scores from different coordinates
+    mirror = torch.full((2100, 3), 50.0, device=dev)
+    mirror[1200] = torch.tensor([-1.0, -2.0, -3.0])
+    mirror[1500] = torch.tensor([1.0, 2.0, 3.0])
+    zero_q = torch.zeros((37, 3), device=dev)
+    ones = torch.ones(37, dtype=torch.bool, device=dev)
+    cases.append(("mirrored targets", (zero_q, ones, mirror,
+                                       torch.ones(2100, dtype=torch.bool, device=dev))))
+    # scores of +0 and -0 terms: targets at +0 and -0, queries with -0 coordinates
+    zeros = mirror.clone()
+    zeros[3] = -0.0
+    zeros[600] = 0.0
+    zeros[1700] = -0.0
+    cases.append(("signed-zero scores", (-zero_q, ones, zeros,
+                                         torch.ones(2100, dtype=torch.bool, device=dev))))
+    # NaN and infinite coordinates, unmasked, and a NaN and an infinite query
+    bad_t, bad_q = t.clone(), q.clone()
+    bad_t[100, 1] = float("nan")
+    bad_t[4000, 0] = float("inf")
+    bad_t[8000, 2] = -float("inf")
+    bad_q[7, 2] = float("nan")
+    bad_q[9, 0] = float("inf")
+    every = torch.ones_like(tm)
+    cases.append(("NaN and inf coordinates", (bad_q, torch.ones_like(qm), bad_t, every)))
+    return cases
+
+
 @pytest.mark.cuda
 def test_nn_fused(dev):
-    rng = np.random.default_rng(4)
-    q, qm = _cloud(rng, 3000, dev, 70.0)
-    t, tm = _cloud(rng, 9000, dev, 70.0)
-    assert _bit_equal(tk.nn_1_fused(q, qm, t, tm), tk.nn_1_fused_reference(q, qm, t, tm))
+    """new = first design = twin, bit for bit, at the splits the C side
+    picks and at fixed ones (1, 3, one a tile), and a second run; the prep
+    kernel's packed target against its twin."""
+    for name, args in _fused_cases(dev):
+        want = tk.nn_1_fused_reference(*args)
+        got = tk.nn_1_fused(*args)
+        assert _bit_equal(got, want), name
+        assert _bit_equal(tk.nn_1_fused_v1(*args), want), name
+        assert _bit_equal(tk.nn_1_fused(*args), got), name
+        for splits in (1, 3, 1 << 15):
+            launch, idx, packed = tk._fused_launcher(*args, splits=splits)
+            launch()
+            assert torch.equal(idx, want[0]), (name, splits)
+        ref = tk.prepare_fused_target_reference(args[2], args[3])
+        assert packed.shape == ref.shape, name
+        # bit for bit, but a NaN is a NaN whatever its payload
+        same = (packed.view(torch.int32) == ref.view(torch.int32)) | (packed.isnan() & ref.isnan())
+        assert bool(same.all()), name
+        assert tk.fused_grid(args[0].shape[0], args[2].shape[0])[1] >= 1
 
 
 def _segment_rows(lengths, gaps, lanes, rng, dev):
@@ -207,14 +270,69 @@ def _labeled_batch(dev, tmp_path):
     return params, ordering.get_ordered_cloud(batch, params)
 
 
+def _hold_rasters(cloud, height_res, *cfgs):
+    """new = first design = twin, byte for byte, and a second run.  Returns
+    the rasters."""
+    want = bev.fused_multi_single_bev_reference(cloud, height_res, *cfgs)
+    got = bev.fused_multi_single_bev(cloud, height_res, *cfgs)
+    for other in (got, bev.fused_multi_single_bev_v1(cloud, height_res, *cfgs),
+                  bev.fused_multi_single_bev(cloud, height_res, *cfgs)):
+        assert all(a.shape == b.shape and torch.equal(a, b) for a, b in zip(other, want))
+    # a warp's equal cells combined: never more atomics than a pair a point
+    assert 0 <= bev.atomics_sent(cloud, height_res, *cfgs) \
+        <= bev.atomics_sent(cloud, height_res, *cfgs, v1=True)
+    return got
+
+
+def _synthetic_batch(dev, b, p, span, seed):
+    """``b`` clouds of ``p`` slots: uniform points in ±``span`` (some outside
+    the grid), a third ground, ragged counts."""
+    rng = np.random.default_rng(seed)
+    xyz = rng.uniform(-span, span, (b, p, 3)).astype(np.float32)
+    xyz[..., 2] = rng.uniform(-4.0, 12.0, (b, p))
+    label = (rng.random((b, p)) > 0.33).astype(np.int32)
+    count = rng.integers(p // 2, p + 1, b)
+    zeros = torch.zeros((b, p), device=dev)
+    return Cloud(xyz=torch.from_numpy(xyz).to(dev), intensity=zeros, row=zeros.int(),
+                 col=zeros.int(), t=zeros.long(), label=torch.from_numpy(label).to(dev),
+                 count=torch.from_numpy(count).to(dev))
+
+
 @pytest.mark.cuda
 def test_bev_raster(dev, tmp_path):
     params, ordered = _labeled_batch(dev, tmp_path)
     labeled, _ = ground.mark_ground(ordered, params)
-    got = bev.fused_multi_single_bev(labeled, params.height_res)
-    want = bev.fused_multi_single_bev_reference(labeled, params.height_res)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    got = _hold_rasters(labeled, params.height_res)
     assert int(got[0].count_nonzero()) > 0 and int(got[1].count_nonzero()) > 0
+    one = Cloud(**{k: getattr(labeled, k)[1] for k in
+                   ("xyz", "intensity", "row", "col", "t", "label")}, count=int(labeled.count[1]))
+    alone = _hold_rasters(one, params.height_res)  # no batch axis
+    assert torch.equal(alone[0], got[0][1]) and torch.equal(alone[1], got[1][1])
+
+    # a 100² grid (rows 16-byte aligned), a 101² one (they are not), 1 and 24
+    # layers; 1,000 slots a cloud (a ragged last block), 1,023 (rows of xyz not
+    # 16-byte aligned)
+    for max_range, p in ((50.0, 1000), (50.5, 1023), (50.0, 256)):
+        for layers in (1, 24):
+            cfgs = (MultiBevConfig(max_range=max_range, num_layers=layers),
+                    SingleBevConfig(max_range=max_range))
+            assert cfgs[0].mat_size in (100, 101)
+            cloud = _synthetic_batch(dev, 3, p, 60.0, seed=p + layers)
+            _hold_rasters(cloud, 0.5, *cfgs)
+            # a cloud with no point, and one whose every point is ground
+            empty = cloud.replace(count=torch.tensor([0, p, 5], device=dev))
+            got = _hold_rasters(empty, 0.5, *cfgs)
+            assert int(got[0][0].count_nonzero()) == 0 and int(got[1][0].count_nonzero()) == 0
+            ground_only = cloud.replace(label=torch.zeros_like(cloud.label))
+            assert int(_hold_rasters(ground_only, 0.5, *cfgs)[0].count_nonzero()) == 0
+            # NaN and infinite coordinates, and points exactly on the grid's edges
+            odd = cloud.xyz.clone()
+            odd[0, :6, 0] = torch.tensor([float("nan"), float("inf"), -float("inf"), -max_range,
+                                          max_range, max_range - 1.0], device=dev)
+            odd[1, :4, 1] = torch.tensor([-max_range, max_range, -max_range - 0.5,
+                                          max_range - 0.5], device=dev)
+            odd[2, :3, 2] = torch.tensor([float("nan"), float("inf"), -float("inf")], device=dev)
+            _hold_rasters(cloud.replace(xyz=odd, label=torch.ones_like(cloud.label)), 0.5, *cfgs)
 
 
 @pytest.mark.cuda

@@ -7,6 +7,7 @@ grid-ordered clouds (the fast path), raw clouds with duplicate cells and
 out-of-range rings (the general ordering) and a cloud over the grid's
 capacity (the host last-wins compaction)."""
 
+import dataclasses
 import os
 import shutil
 
@@ -15,11 +16,14 @@ import pytest
 
 from pctpu.config import SensorParams as JSensorParams
 from pctpu.pipelines.multi_bev import run_multi_bev as jrun
+from pctpu.runtime.loader import load_xyzirct_arrays as jload
 from pctpu_torch.cli import batch_multi_bev_gen as cli
 from pctpu_torch.config import SensorParams, get_sensor_params
 from pctpu_torch.experiments.scene import multi_bev_tree
+from pctpu_torch.io.pcd import read_pcd
 from pctpu_torch.pipelines.multi_bev import run_multi_bev
 from pctpu_torch.runtime import native_io
+from pctpu_torch.runtime.loader import load_xyzirct_arrays
 
 SMALL = (16, 256, 10, 0.5)
 OUTPUTS = ("non_ground_point_cloud", "output_multi_bev", "output_single_bev")
@@ -95,6 +99,51 @@ def test_cli_and_resume_byte_identical_to_pctpu(tmp_path, capsys):
     fa, fc = output_files(a), output_files(c)
     assert not any(k.endswith(".png") for k in fc)
     assert fc == {k: v for k, v in fa.items() if not k.endswith(".png")}
+
+
+def test_wall_ms_per_cloud(small_tree, tmp_path):
+    """``MultiBevOutputs.wall_ms_per_cloud`` is the loop's wall over the
+    clouds done, as pctpu's."""
+    root = str(tmp_path / "port")
+    shutil.copytree(small_tree, root)
+    out = run_multi_bev(root, SensorParams(*SMALL), batch_size=4, device="cpu")
+    assert out.loop_wall_ms > 0.0
+    assert out.wall_ms_per_cloud == out.loop_wall_ms / 8
+    assert dataclasses.replace(out, num_clouds=0).wall_ms_per_cloud == 0.0
+
+
+@pytest.mark.parametrize("with_params", [False, True])
+def test_loader_matches_pctpu_on_an_over_capacity_cloud(small_tree, with_params):
+    """``load_xyzirct_arrays(path, capacity, params=None)``: without
+    ``params`` an oversized cloud truncates, with them it is compacted to
+    its per-cell last-wins winners — pctpu's arrays either way."""
+    path = os.path.join(small_tree, "keyframe_point_cloud", "000007.pcd")
+    params, jparams = SensorParams(*SMALL), JSensorParams(*SMALL)
+    kw, jkw = ({"params": params}, {"params": jparams}) if with_params else ({}, {})
+    got = load_xyzirct_arrays(path, params.grid_size, **kw)
+    want = jload(path, jparams.grid_size, **jkw)
+    assert read_pcd(path)[1]["points"] > params.grid_size
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and got[k].shape == np.shape(want[k]), k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert int(got["count"]) <= params.grid_size
+    if not with_params:
+        assert int(got["count"]) == params.grid_size
+
+
+def test_package_exports_match_pctpu():
+    """``pctpu_torch`` exports what ``pctpu`` does, but the two normal
+    estimators (not ported yet), plus its own config and array helpers."""
+    import pctpu
+    import pctpu_torch
+
+    missing = set(pctpu.__all__) - set(pctpu_torch.__all__)
+    assert missing == {"Normal2dEstimation", "PCA2D"}
+    for name in pctpu_torch.__all__:
+        assert getattr(pctpu_torch, name) is not None
+    hdl64 = pctpu_torch.get_sensor_params(pctpu_torch.parse_sensor_type("HDL_64E"))
+    assert isinstance(hdl64, pctpu_torch.SensorParams) and hdl64.n_scan == 64
 
 
 def test_cli_rejects_unported_flags(tmp_path):

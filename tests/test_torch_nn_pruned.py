@@ -348,6 +348,8 @@ def test_port_imports_no_jax():
         "import pctpu_torch.pipelines.multi_bev, pctpu_torch.cli.batch_multi_bev_gen\n"
         "import pctpu_torch.experiments.scene, pctpu_torch.experiments.bev_ab\n"
         "import pctpu_torch.experiments.segment_sums_probe\n"
+        "import pctpu_torch.experiments.bev_raster_probe\n"
+        "import pctpu_torch.experiments.nn_fused_probe\n"
         "from pctpu_torch.runtime import native_io\n"
         "assert native_io._lib is None and not native_io._tried\n"
         "from pctpu_torch.ops import _cuda\n"

@@ -286,6 +286,47 @@ def test_bev_rasters_match_pctpu(seed):
     np.testing.assert_array_equal(bev.single_bev(pl).numpy(), np.asarray(jbev.single_bev(jl)))
 
 
+@pytest.mark.parametrize("max_range,layers", [(50.0, 24), (50.5, 1), (16.0, 7)])
+def test_bev_rasters_other_grids_match_pctpu(max_range, layers):
+    """Grids of 100², 101² and 32² cells and 1 to 24 layers (the shapes the
+    card tests give the raster kernels) agree with pctpu's fused raster."""
+    from pctpu.config import MultiBevConfig as JMulti
+    from pctpu.config import SingleBevConfig as JSingle
+    from pctpu_torch.config import MultiBevConfig, SingleBevConfig
+
+    rng = np.random.default_rng(int(max_range * 2))
+    n = 500
+    xyz = rng.uniform(-max_range - 5, max_range + 5, (n, 3)).astype(np.float32)
+    xyz[:, 2] = rng.uniform(-4.0, 12.0, n)
+    xyz[:4, 0] = [-max_range, max_range, max_range - 1.0, -max_range - 0.5]  # the grid's edges
+    label = np.where(rng.random(n) > 0.3, -2, 0).astype(np.int32)
+    jc = jcloud.make_cloud(xyz, label=label)
+    jm, js = jbev.fused_multi_single_bev(jc, 0.5, JMulti(max_range=max_range, num_layers=layers),
+                                         JSingle(max_range=max_range))
+    pm, ps = bev.fused_multi_single_bev(port(jc), 0.5,
+                                        MultiBevConfig(max_range=max_range, num_layers=layers),
+                                        SingleBevConfig(max_range=max_range))
+    assert pm.shape == (layers, int(2 * max_range), int(2 * max_range))
+    np.testing.assert_array_equal(pm.numpy(), np.asarray(jm))
+    np.testing.assert_array_equal(ps.numpy(), np.asarray(js))
+    assert int(pm.count_nonzero()) > 0 and int(ps.count_nonzero()) > 0
+
+
+def test_raster_kernels_need_cuda_tensors():
+    """No fallback: the raster launchers refuse a CPU cloud (only
+    ``fused_multi_single_bev`` takes the twin for one), and the fused entry
+    refuses two grids that differ."""
+    from pctpu_torch.config import MultiBevConfig, SingleBevConfig
+
+    cloud = port(jcloud.make_cloud(np.zeros((4, 3), np.float32)))
+    for fn in (bev.fused_multi_single_bev_v1, bev._raster_launcher, bev.atomics_sent):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(cloud, 0.5)
+    for fn in (bev.fused_multi_single_bev, bev.fused_multi_single_bev_v1):
+        with pytest.raises(ValueError, match="geometry"):
+            fn(cloud, 0.5, MultiBevConfig(max_range=50.0), SingleBevConfig())
+
+
 def test_bev_corrupt_values_match_pctpu():
     """NaN / ±inf / huge coordinates land where pctpu puts them (XLA's
     saturating f32 → int32: NaN → cell 0)."""
