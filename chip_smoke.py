@@ -32,16 +32,24 @@ Phases, each of which raises on failure (the exit code is then not 0):
    instance), the per-query 32-group oracle's pairs and the bound; one pass
    on a prepared target must put at most 3 kernels on the card;
    ``torch.cdist(q, t).min(1)`` at the fine and whole shapes and at
-   20,000 × 300,000;
+   20,000 × 300,000; then K1 over a problem axis — 16 fine problems at the
+   49,152 bucket, each on a target of its own (thr 1 m), and 32 coarse
+   problems of 8,192 flat points, two yaw guesses on each of 16 targets
+   (thr 10 m): the batched prep (one launch) and pass (at most 3 kernels)
+   bit-equal to the twin and to the 16 / 32 unbatched kernel calls, the
+   batched pass and the unbatched passes timed in turns, per-kernel
+   profiler times and the bound (the sum of the single bounds);
 4. the voxel grid on the card twice and on the CPU: bit-identical;
 5. the slice: a keyframe tree of the 65,536-capacity registration scene and
    moved copies with known yaw and translation
    (``experiments.scene.registration_tree``, the tree that
    ``experiments.registration_ab`` times) goes through the
-   ``batch_top_part_registration`` CLI; every pair must succeed within 0.5°
-   and 0.10 m of the truth, and each kernel must have been launched;
+   ``batch_top_part_registration`` CLI at ``--pair-batch=1``; every pair
+   must succeed within 0.5° and 0.10 m of the truth, and each kernel must
+   have been launched;
 6. the same tree and pairs through the ``batch_whole_registration`` CLI
-   (direct WHOLE_ICP from the yaw guess, the pruned 1-NN at thr 4 m): every
+   at ``--pair-batch=1`` (direct WHOLE_ICP from the yaw guess, the pruned
+   1-NN at thr 4 m): every
    pair must succeed within 0.5° and 0.10 m; pairs/s, the ``[TIME]``
    fine ms and the NN passes per pair are printed;
 7. the fused unpruned 1-NN (``cuda_knn.nn_1_fused``) at 65,536 × 65,536
@@ -72,9 +80,19 @@ Phases, each of which raises on failure (the exit code is then not 0):
    tolerance tree byte-identical to the bit-exact tree, the card's tree to
    the port's CPU run on 4 clouds, and labels, ``.bin`` and single BEV to
    ``native/ref_oracle.cpp`` (any difference must be a D2 slope knife
-   edge).
+   edge);
+10. pair-batched registration: the registration tree's 20-pair list
+   (``match_result_20.txt``: one batch of 16 and a tail of 4 padded to 16)
+   through both CLIs at ``--pair-batch=16`` and ``=1``, in turns after a
+   warm-up; every pair a success within 0.5° and 0.10 m at both, the same
+   classification at both, and the batched 1-NN launched; printed: pairs/s,
+   the byte-equal report lines and the largest transform |Δ| between 1 and
+   16, host syncs (torch's sync debug mode) per pair, per batch iteration
+   of the ICP loop and by the line that made them, kernels on the card per
+   pair and per problem iteration (torch.profiler), and the
+   ``BucketSpec`` hits and misses.
 
-Each of paths 5-9 runs with the launch counts set to 0 just before it and
+Each of paths 5-10 runs with the launch counts set to 0 just before it and
 read just after; a kernel of the path launched no time fails the run.
 Prints one JSON line of per-kernel results, then the final line
 ``{"ok": true, "device": {...}}``.
@@ -82,6 +100,7 @@ Prints one JSON line of per-kernel results, then the final line
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import importlib.metadata
 import io
@@ -93,6 +112,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -343,6 +363,93 @@ def nn_case(name: str, args, md, smi: str) -> dict:
           f"device ms by kernel (torch.profiler) "
           f"{ {k: round(v, 6) for k, v in by_kernel.items()} }; card {smi}")
     return out
+
+
+def batched_nn_case(name: str, q, qm, t, tm, md, smi: str, library: bool = False) -> dict:
+    """K1 over a problem axis: P problems ``q`` (P, Q, 3) on Bt targets ``t``
+    (Bt, T, 3), problem p in target p // (P / Bt).  The batched prep (one
+    launch) and pass (three launches) bit for bit against the twin and
+    against Bt / P unbatched kernel calls; then, in turns in this call, the
+    batched pass alone and the P unbatched passes alone (CUDA events), the
+    prep, per-kernel profiler times and what a call puts on the card, the
+    twin, and the bound: the sum of the problems' single bounds, each
+    counted as phase 3 counts one pass's (bytes the work needs, 9 flop an
+    oracle pair).  ``library``: ``torch.cdist(q, t).min(1)`` once a problem
+    (one call over the batch would hold P·Q·T distances)."""
+    from pctpu_torch.experiments.card import (NN_FLOP_PER_PAIR, bound_ms, cuda_ms, oracle_pairs,
+                                              profile_calls)
+    from pctpu_torch.ops import cuda_knn
+
+    n_problems, n_targets = q.shape[0], t.shape[0]
+    per = n_problems // n_targets
+    thr2 = cuda_knn._thr2(md)
+    prep = cuda_knn.prepare_targets(t, tm)
+    ref = cuda_knn.prepare_targets_reference(t, tm)
+    prep_err = compare(f"{name}: batched prep kernel", [prep.packed, prep.group_box, prep.tile_box],
+                       [ref.packed, ref.group_box, ref.tile_box])
+    singles = [cuda_knn.prepare_target(t[b], tm[b]) for b in range(n_targets)]
+    compare(f"{name}: batched prep against {n_targets} unbatched preps",
+            [prep.packed, prep.group_box, prep.tile_box],
+            [torch.stack([getattr(s, f) for s in singles]) for f in ("packed", "group_box",
+                                                                     "tile_box")])
+    got = cuda_knn.nn_1_pruned_batched(q, qm, prep, md)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = cuda_knn.nn_1_pruned_batched_reference(q, qm, t, tm, md)
+    torch.cuda.synchronize()
+    twin_ms = (time.perf_counter() - t0) * 1e3
+    err = compare(f"{name}: batched pass against the twin", got, want)
+    one = [cuda_knn.nn_1_pruned(q[k], qm[k], prepared=singles[k // per], max_distance=md)
+           for k in range(n_problems)]
+    compare(f"{name}: batched pass against {n_problems} unbatched kernel calls", got,
+            [torch.stack([o[0] for o in one]), torch.stack([o[1] for o in one])])
+    batched = cuda_knn._pass_launcher(q, qm, prep, thr2)[0]
+    unbatched = [cuda_knn._pass_launcher(q[k], qm[k], singles[k // per], thr2)[0]
+                 for k in range(n_problems)]
+    timed = {"batched": batched, "unbatched": lambda: [f() for f in unbatched]}
+    ms = {k: [] for k in timed}
+    for k in ("batched", "unbatched", "unbatched", "batched"):
+        ms[k].append(cuda_ms(timed[k], reps=20))
+    ms = {k: min(v) for k, v in ms.items()}
+    prep_ms = cuda_ms(lambda: cuda_knn.prepare_targets(t, tm), reps=50)
+    prep_twin_ms = cuda_ms(lambda: cuda_knn.prepare_targets_reference(t, tm), reps=2, warmup=1)
+    kernels, copies, by_kernel = profile_calls(batched, reps=20)
+    prep_kernels, prep_copies, _ = profile_calls(lambda: cuda_knn.prepare_targets(t, tm), reps=20)
+    if kernels > 3 or copies:
+        raise AssertionError(f"{name}: a batched pass puts {kernels} kernels + {copies} copies "
+                             "on the card")
+    if prep_kernels != 1 or prep_copies:
+        raise AssertionError(f"{name}: the batched prep is {prep_kernels} kernels")
+    nq, nt = q.shape[1], t.shape[1]
+    target_bytes = nt * 12 + 6 * 4 * (-(-nt // cuda_knn.GROUP) + -(-nt // cuda_knn.TT))
+    t_bytes = t_ops = bound = 0.0
+    for k in range(n_problems):
+        oracle = oracle_pairs(q[k], qm[k], got[1][k], prep.group_box[k // per], thr2)
+        b = bound_ms(nq * 13 + target_bytes + nq * 8, NN_FLOP_PER_PAIR * oracle)
+        bound += b[0]
+        t_bytes += bound_ms(nq * 13 + target_bytes + nq * 8, 0)[0]
+        t_ops += bound_ms(0, NN_FLOP_PER_PAIR * oracle)[0]
+    prep_bound = bound_ms(n_targets * (nt * 13 + target_bytes), 0)
+    lib_ms = None
+    if library:
+        lib_ms = cuda_ms(lambda: [torch.cdist(q[k], t[k // per]).min(1)
+                                  for k in range(n_problems)], reps=1, warmup=1)
+        torch.cuda.empty_cache()
+    print(f"  {name}: P={n_problems} problems of Q={nq} on Bt={n_targets} targets of T={nt}; "
+          f"batched pass alone {ms['batched']:.4f} ms, the {n_problems} unbatched passes alone "
+          f"{ms['unbatched']:.4f} ms (CUDA events, the least of two turns each); a batched pass "
+          f"puts {kernels} kernels + {copies} copies on the card, the batched prep {prep_kernels} "
+          f"kernel ({prep_ms:.4f} ms, its twin {prep_twin_ms:.4f} ms, bound "
+          f"{prep_bound[0]:.6f} ms by {prep_bound[1]}); device ms by kernel (torch.profiler) "
+          f"{ {k: round(v, 6) for k, v in by_kernel.items()} }; twin {twin_ms:.1f} ms; bound "
+          f"{bound:.6f} ms (sum of the single bounds; bytes {t_bytes:.6f}, operations "
+          f"{t_ops:.6f}), reached {bound / ms['batched']:.4f}"
+          + (f"; torch.cdist(q, t).min(1) a problem, {n_problems} calls {lib_ms:.4f} ms"
+             if library else "") + f"; card {smi}")
+    return {"err": err, "prep_err": prep_err, "ms": ms["batched"], "unbatched_ms": ms["unbatched"],
+            "plain_ms": twin_ms, "bound": bound, "bound_by": "operations" if t_ops >= t_bytes
+            else "bytes", "library_ms": lib_ms, "prep_ms": prep_ms, "prep_plain_ms": prep_twin_ms,
+            "prep_bound": prep_bound}
 
 
 def raster_case(labeled, params, smi: str, ptxas: dict) -> dict:
@@ -690,6 +797,184 @@ def multi_bev_phase(dev: torch.device, smi: str, n_ordered: int = 64, ptxas: dic
     ]
 
 
+def run_logged(fn, *args):
+    """``fn(*args)`` with its standard output captured: (result, log)."""
+    captured = io.StringIO()
+    with contextlib.redirect_stdout(captured):
+        out = fn(*args)
+    return out, captured.getvalue()
+
+
+def pair_batched_phase(dev: torch.device, smi: str, capacity: int = 65536) -> dict:
+    """Phase 10 (module docstring).  Returns the launch counts of the
+    top-part CLI's run at ``--pair-batch=16`` (the path's run)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pctpu_torch.cli import batch_top_part_registration as top_cli
+    from pctpu_torch.cli import batch_whole_registration as whole_cli
+    from pctpu_torch.experiments.scene import TREE_PAIRS_20, TREE_POSES, registration_tree
+    from pctpu_torch.ops import _cuda, icp
+    from pctpu_torch.pipelines import registration
+
+    tree = os.path.join(ROOT, "build", "chip_smoke_batched")
+    shutil.rmtree(tree, ignore_errors=True)
+    registration_tree(tree)
+    clouds = os.path.join(tree, "clouds")
+    match = os.path.join(tree, "match_result_20.txt")
+    n = len(TREE_PAIRS_20)
+    chunks = [min(16, n - k) for k in range(0, n, 16)]
+    specs, whole_calls, seq_fine = [], [], []
+    real = {"spec": registration.BucketSpec, "whole": registration.register_whole_pairs,
+            "icp": registration.icp_point_to_point, "top": top_cli.run_batch_top_part_registration}
+
+    class Spec(real["spec"]):
+        def __init__(self):
+            super().__init__()
+            specs.append(self)
+
+    def whole_pairs(*args, **kwargs):
+        out = real["whole"](*args, **kwargs)
+        whole_calls.append(out)
+        return out
+
+    def point_to_point(*args, **kwargs):
+        out = real["icp"](*args, **kwargs)
+        seq_fine.append(out.numpy())
+        return out
+
+    reports = []
+
+    def top_run(*args, **kwargs):
+        reports.append(real["top"](*args, **kwargs))
+        return reports[-1]
+
+    registration.BucketSpec = Spec
+    registration.register_whole_pairs = whole_pairs
+    registration.icp_point_to_point = point_to_point
+    top_cli.run_batch_top_part_registration = top_run
+
+    def run(kind: str, batch: int, match_file: str = match, tag: str = "run"):
+        """One CLI run: (wall s, launch counts, log, per-pair (success,
+        fitness, transform), report path)."""
+        report = os.path.join(tree, f"{kind}_{batch}_{tag}.txt")
+        argv = [match_file, clouds, f"--report={report}", f"--capacity={capacity}",
+                f"--pair-batch={batch}", f"--device={dev.type}"]
+        whole_calls.clear()
+        seq_fine.clear()
+        reports.clear()
+        _cuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "top":
+            rc, log = run_logged(top_cli.main, argv + ["--flat-cap=32768"])
+        else:
+            rc, log = run_logged(whole_cli.main, argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"{kind} CLI at --pair-batch={batch} exited {rc}")
+        if kind == "top":
+            pairs = [(r.success, r.fitness_fine, r.transform_fine) for r in reports[-1]]
+        elif batch > 1:
+            got = [r for call, size in zip(whole_calls, chunks) for r in call[:size]]
+            pairs = [(float(r.fitness) <= 1.5, float(r.fitness), r.transform) for r in got]
+        else:
+            pairs = [(float(r.fitness) <= 1.5, float(r.fitness), r.transform) for r in seq_fine]
+        return wall, dict(_cuda.launch_counts), log, pairs, report
+
+    try:
+        # warm-up: both CLIs at both batch sizes on the one-pair list
+        for kind in ("top", "whole"):
+            for batch in (16, 1):
+                run(kind, batch, os.path.join(tree, "warmup.txt"), "warm")
+        results = {}
+        for kind in ("top", "whole"):
+            for batch in (16, 1, 1, 16):  # in turns
+                wall, launches, log, pairs, report = run(kind, batch)
+                if (kind, batch) not in results or wall < results[kind, batch]["wall"]:
+                    results[kind, batch] = {"wall": wall, "launches": launches, "log": log,
+                                            "pairs": pairs, "report": report}
+        # untimed: host syncs (torch's sync debug mode), ICP iterations and
+        # every kernel the card ran (torch.profiler)
+        counted = {}
+        for kind in ("top", "whole"):
+            for batch in (16, 1):
+                icp.loop_counts.update(iterations=0, problem_iterations=0)
+                with warnings.catch_warnings(record=True) as caught, profile(
+                        activities=[ProfilerActivity.CUDA]) as prof:
+                    warnings.simplefilter("always")
+                    torch.cuda.set_sync_debug_mode(1)
+                    try:
+                        run(kind, batch, tag="counted")
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                # each sync by the line of the port that made it
+                sites = collections.Counter(
+                    f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+                    if "synchroniz" in str(w.message))
+                events = [e for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and not e.name.startswith(("Memcpy", "Memset"))]
+                counted[kind, batch] = {
+                    "syncs": sum(sites.values()), "kernels": len(events), "sites": sites,
+                    "loop_syncs": sum(v for k, v in sites.items()
+                                      if k.startswith(os.path.join("pctpu_torch", "ops", "icp.py"))),
+                    **icp.loop_counts}
+    finally:
+        registration.BucketSpec = real["spec"]
+        registration.register_whole_pairs = real["whole"]
+        registration.icp_point_to_point = real["icp"]
+        top_cli.run_batch_top_part_registration = real["top"]
+
+    def relative(q_i: int, m_i: int) -> np.ndarray:
+        return TREE_POSES[m_i] @ np.linalg.inv(TREE_POSES[q_i])
+
+    for kind in ("top", "whole"):
+        one, many = results[kind, 1], results[kind, 16]
+        for batch, res in ((1, one), (16, many)):
+            if len(res["pairs"]) != n or "count_failure: 0," not in res["log"]:
+                raise AssertionError(f"{kind} at --pair-batch={batch}: not every pair succeeded")
+            for (q_i, m_i, _), (ok, _, tf) in zip(TREE_PAIRS_20, res["pairs"]):
+                yaw_err, t_err = pose_error(tf, relative(q_i, m_i))
+                if not (ok and np.all(np.isfinite(tf)) and yaw_err < 0.5 and t_err < 0.10):
+                    raise AssertionError(f"{kind} pair {q_i}->{m_i} at --pair-batch={batch} off "
+                                         f"the truth: {yaw_err} deg, {t_err} m")
+        if [p[0] for p in one["pairs"]] != [p[0] for p in many["pairs"]]:
+            raise AssertionError(f"{kind}: classification differs between 1 and 16")
+        require_launched(many["launches"], ("nn_prep_batched", "nn_pruned_batched",
+                                            "segment_sum4"), f"the {kind} CLI at --pair-batch=16")
+        delta = max(float(np.abs(a[2] - b[2]).max()) for a, b in zip(one["pairs"], many["pairs"]))
+        if kind == "top":
+            lines = [open(r["report"]).read().splitlines() for r in (one, many)]
+            equal = f"{sum(a == b for a, b in zip(*lines))} of {len(lines[0])} report lines " \
+                    "byte-equal"
+        else:
+            equal = f"{sum(a[1] == b[1] for a, b in zip(one['pairs'], many['pairs']))} of {n} " \
+                    "fine fitnesses equal"
+        name = {"top": "batch_top_part_registration", "whole": "batch_whole_registration"}[kind]
+        for batch, res in ((1, one), (16, many)):
+            c = counted[kind, batch]
+            times = ", ".join(f"{s} {float(v):.3f}" for s, v in re.findall(
+                r"\[TIME\] Avg Tiempo for \S+ Stage \((\w+)\): ([0-9.eE+-]+)", res["log"]))
+            hand = {k: v for k, v in res["launches"].items() if v}
+            print(f"{name} --pair-batch={batch}: {n} pairs in {res['wall']:.3f} s = "
+                  f"{n / res['wall']:.4f} pairs/s (the faster of two turns); [TIME] ms per pair "
+                  f"{times}; host syncs {c['syncs']} = {c['syncs'] / n:.2f} a pair, of them in "
+                  f"ops/icp.py {c['loop_syncs']} = {c['loop_syncs'] / max(c['iterations'], 1):.3f} "
+                  f"per batch iteration ({c['iterations']} batch iterations, "
+                  f"{c['problem_iterations']} problem iterations), by line "
+                  f"{dict(c['sites'].most_common(8))}; kernels on the card {c['kernels']} = "
+                  f"{c['kernels'] / n:.1f} a pair, "
+                  f"{c['kernels'] / max(c['problem_iterations'], 1):.1f} a problem iteration; "
+                  f"hand-kernel launches {hand}; card {smi}")
+        print(f"{name}: every pair within 0.5 deg / 0.10 m at 1 and 16, same classification; "
+              f"{equal}; largest |transform delta| between 1 and 16 {delta:.3e}"
+              + (f"; BucketSpec hits {specs[-1].hits}, misses {specs[-1].misses} in one run "
+                 f"of {len(chunks)} batches" if kind == "top" and specs else ""))
+    shutil.rmtree(tree)
+    return results["top", 16]["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)",
@@ -837,6 +1122,31 @@ def main() -> int:
     print(f"  {big_name}: torch.cdist(q, t).min(1) {nn_ms[big_name]['library']:.4f} ms "
           f"(Q={big_q.shape[0]}, T={big_t.shape[0]}, {how}); card {smi}")
 
+    # K1 over a problem axis: 16 fine problems, each on a target of its own
+    # (the fine pass moved by 16 poses), and 32 coarse problems, the two yaw
+    # guesses of 16 flat targets
+    moves = [pose(2.0 * k, 0.5 * k, -0.3 * k) for k in range(16)]
+
+    def moved(x: torch.Tensor, ms) -> torch.Tensor:
+        return transform_xyz(x, torch.from_numpy(np.stack(ms)).float().to(dev))
+
+    def sorted_batch(x: torch.Tensor, m: torch.Tensor):
+        return cuda_knn.spatial_sort_payload(x, m.expand(x.shape[0], -1).contiguous())
+
+    near_np = pose(17.2, 1.53, -2.04)
+    b_fq, b_fqm = sorted_batch(moved(src_v[:fbucket].expand(16, -1, -1),
+                                     [m @ near_np for m in moves]), src_vm[:fbucket])
+    b_ft, b_ftm = sorted_batch(moved(tgt_v[:fbucket].expand(16, -1, -1), moves), tgt_vm[:fbucket])
+    flip = pose(180.0, 0.0, 0.0)
+    b_cq, b_cqm = sorted_batch(moved(flat_q.expand(32, -1, -1),
+                                     [m @ g for m in moves for g in (np.eye(4), flip)]), ones)
+    b_ct, b_ctm = sorted_batch(moved(flat_t.expand(16, -1, -1), moves), ones)
+    print("bbox-pruned 1-NN over a problem axis (csrc/nn_pruned_warp.cu: one prep launch for "
+          "the targets, one pass of 3 launches for all problems)")
+    batched_fine = batched_nn_case("batched fine thr 1 m", b_fq, b_fqm, b_ft, b_ftm, 1.0, smi,
+                                   library=True)
+    batched_coarse = batched_nn_case("batched coarse thr 10 m", b_cq, b_cqm, b_ct, b_ctm, 10.0, smi)
+
     values, seg, _ = voxel.voxel_segments(src, src_m, 0.2)
     seg_sums = sums_case("segment sums (65,536 voxel rows)", (values, seg, None, None, None),
                          "segment_sum4", ptxas, smi, clock_mhz, fill=False)
@@ -871,7 +1181,7 @@ def main() -> int:
         return best, fine
 
     registration.register_pair = recording_register_pair
-    argv = ["--capacity=65536", "--flat-cap=32768"]
+    argv = ["--capacity=65536", "--flat-cap=32768", "--pair-batch=1"]
     try:
         # warm-up pair: CUDA context, cuBLAS and cuSOLVER handles
         cli.main([warm, os.path.join(tree, "clouds"),
@@ -903,11 +1213,15 @@ def main() -> int:
         print(f"  pair {q_i}->{m_i}: yaw error {yaw_err:.6f} deg, translation error {t_err:.6f} m")
         if not (np.all(np.isfinite(tf)) and yaw_err < 0.5 and t_err < 0.10):
             raise AssertionError(f"pair {q_i}->{m_i} off the truth")
-    require_launched(launches, ("nn_prep", "nn_pruned", "segment_sum4"), "the top-part CLI run")
+    require_launched(launches, ("nn_prep", "nn_pruned", "nn_prep_batched", "nn_pruned_batched",
+                                "segment_sum4"), "the top-part CLI run")
     print(f"slice: {len(pairs)} pairs in {wall:.3f} s = {len(pairs) / wall:.4f} pairs/s; "
           f"[TIME] per pair coarse {stage_ms['coarse']:.3f} ms, fine {stage_ms['fine']:.3f} ms; "
-          f"NN passes per pair {launches['nn_pruned'] / len(pairs):.1f}, target preps per pair "
-          f"{launches['nn_prep'] / len(pairs):.1f}; launches {launches}; card {smi}")
+          f"NN passes per pair {(launches['nn_pruned'] + launches['nn_pruned_batched']) / len(pairs):.1f} "
+          f"(the coarse guesses' {launches['nn_pruned_batched'] / len(pairs):.1f} batched, two "
+          f"problems each), target preps per pair "
+          f"{(launches['nn_prep'] + launches['nn_prep_batched']) / len(pairs):.1f}; launches "
+          f"{launches}; card {smi}")
 
     # --- 6. batch_whole_registration through its CLI, on the same tree -------
     whole_transforms = []
@@ -921,7 +1235,7 @@ def main() -> int:
     registration.icp_point_to_point = recording_icp
     clouds = os.path.join(tree, "clouds")
     try:
-        whole_cli.main([warm, clouds, "--capacity=65536",
+        whole_cli.main([warm, clouds, "--capacity=65536", "--pair-batch=1",
                         f"--report={os.path.join(tree, 'warmup_whole.txt')}"])
         whole_transforms.clear()
         whole_report = os.path.join(tree, "whole_report.txt")
@@ -930,7 +1244,7 @@ def main() -> int:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(captured):
-            rc = whole_cli.main([match, clouds, "--capacity=65536",
+            rc = whole_cli.main([match, clouds, "--capacity=65536", "--pair-batch=1",
                                  f"--report={whole_report}"])
         torch.cuda.synchronize()
         whole_wall = time.perf_counter() - t0
@@ -1018,6 +1332,9 @@ def main() -> int:
     # --- 9. batch_multi_bev_gen ----------------------------------------------
     bev_kernels = multi_bev_phase(dev, smi, ptxas=ptxas, clock_mhz=clock_mhz)
 
+    # --- 10. pair-batched registration ---------------------------------------
+    batched_launches = pair_batched_phase(dev, smi)
+
     # K1, the prep and K4's <128, 1024, prod> on the fine pass at thr 1 m
     fine = nn_ms["fine thr 1 m"]
     big_fused = fused[0]
@@ -1031,6 +1348,21 @@ def main() -> int:
          "replaces": "pctpu/ops/pallas_knn.py:275", "launches": launches["nn_prep"],
          "max_abs_err": prep_err, "ms": fine["prep"], "plain_ms": fine["prep_twin"],
          "bound_ms": fine["prep_bound"], "bound_by": fine["prep_bound_by"],
+         "library_ms": None},
+        {"name": "nn_pruned_batched", "route": "cuda",
+         "source": "pctpu_torch/csrc/nn_pruned_warp.cu",
+         "replaces": "pctpu/ops/pallas_knn.py:275", "launches": batched_launches["nn_pruned_batched"],
+         "max_abs_err": max(batched_fine["err"], batched_coarse["err"]), "ms": batched_fine["ms"],
+         "plain_ms": batched_fine["plain_ms"], "bound_ms": batched_fine["bound"],
+         "bound_by": batched_fine["bound_by"], "library_ms": batched_fine["library_ms"],
+         "unbatched_ms": batched_fine["unbatched_ms"], "coarse_ms": batched_coarse["ms"],
+         "coarse_unbatched_ms": batched_coarse["unbatched_ms"]},
+        {"name": "nn_prep_batched", "route": "cuda",
+         "source": "pctpu_torch/csrc/nn_pruned_warp.cu",
+         "replaces": "pctpu/ops/pallas_knn.py:275", "launches": batched_launches["nn_prep_batched"],
+         "max_abs_err": max(batched_fine["prep_err"], batched_coarse["prep_err"]),
+         "ms": batched_fine["prep_ms"], "plain_ms": batched_fine["prep_plain_ms"],
+         "bound_ms": batched_fine["prep_bound"][0], "bound_by": batched_fine["prep_bound"][1],
          "library_ms": None},
         sums_entry("segment_sum4", "pctpu/ops/voxel.py:80", launches["segment_sum4"], seg_sums),
         {"name": "nn_fused", "route": "cuda", "source": "pctpu_torch/csrc/nn_fused.cu",

@@ -10,8 +10,8 @@ Layers:
   pctpu_torch.geom              host-side SE(3) arithmetic (reports, poses)
   pctpu_torch.io                PCD, PNG, CSV and pose files
   pctpu_torch.ops               torch ops + the hand-written CUDA kernels
-  pctpu_torch.pipelines         batch_multi_bev_gen and the sequential
-                                registration pipelines
+  pctpu_torch.pipelines         batch_multi_bev_gen and the sequential and
+                                pair-batched registration pipelines
   pctpu_torch.runtime           loader, writers, stage timing ([TIME])
   pctpu_torch.cli               reference-compatible entry points
 
@@ -27,6 +27,7 @@ torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
 from pctpu_torch.cloud import Cloud, from_numpy, make_cloud  # noqa: E402
+from pctpu_torch.ops.normals2d import Normal2dEstimation  # noqa: E402
 from pctpu_torch.config import (  # noqa: E402
     GroundConfig,
     IcpConfig,
@@ -46,6 +47,7 @@ __all__ = [
     "GroundConfig",
     "IcpConfig",
     "MultiBevConfig",
+    "Normal2dEstimation",
     "RegistrationConfig",
     "SensorParams",
     "SingleBevConfig",

@@ -4,8 +4,10 @@ reference/BatchTopPartRegistration.cpp:311-321
 same as ``pctpu.cli.batch_top_part_registration``.
 
 Runs on the CUDA card, or on the CPU with ``--device=cpu``; without a card
-and that flag it exits non-zero.  The device in use is printed.  Pair
-batching, device meshes and multi-process sharding are not ported yet."""
+and that flag it exits non-zero.  The device in use is printed.
+``--pair-batch=N`` runs N pairs as one batch through every stage (default 16
+on the card, 1 on the CPU); device meshes and multi-process sharding are not
+ported yet."""
 
 import sys
 
@@ -22,12 +24,14 @@ def main(argv=None) -> int:
             "Usage: batch_top_part_registration <match_result.txt> <point_cloud_dir>\n"
             "Extensions: --capacity=N  --flat-cap=N  --report=PATH\n"
             "            --resume (skip pairs already in <report>.progress)\n"
-            "            --device=cuda|cpu (default cuda)"
+            "            --device=cuda|cpu (default cuda)\n"
+            "            --pair-batch=N (pairs batched through every stage;\n"
+            "            default 16 on the card, 1 on the CPU)"
         )
-    if int_kw(kw, "pair_batch", 1) != 1 or any(k in kw for k in _NOT_PORTED):
+    if any(k in kw for k in _NOT_PORTED):
         raise NotImplementedError(
-            "pctpu_torch runs pairs one after another on one device: "
-            "--pair-batch>1, --devices and multi-process flags are not ported"
+            "pctpu_torch runs on one device in one process: "
+            "--devices and multi-process flags are not ported"
         )
     device = pick_device(kw)
     run_batch_top_part_registration(
@@ -36,6 +40,7 @@ def main(argv=None) -> int:
         report_path=kw.get("report", "./icp_precision_report.txt"),
         flat_cap=int_kw(kw, "flat_cap", 32768),
         capacity=int_kw(kw, "capacity", None),
+        pair_batch=int_kw(kw, "pair_batch", None),
         resume=kw.get("resume", "false") == "true",
         device=device,
     )

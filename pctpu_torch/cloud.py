@@ -14,6 +14,11 @@ import dataclasses
 import numpy as np
 import torch
 
+# label conventions of the reference: not yet segmented
+# (KittiPointCloudSelect.cpp:237) and ground (BatchMultiBevGen.cpp:245)
+LABEL_UNSEGMENTED = -2
+LABEL_GROUND = 0
+
 
 @dataclasses.dataclass(frozen=True)
 class Cloud:
@@ -111,6 +116,46 @@ def make_cloud(
         label=_field(label, np.int32, torch.int32),
         count=int(n if count is None else count),
     )
+
+
+def empty_cloud(capacity: int, device: torch.device | str = "cuda") -> Cloud:
+    """An all-zero cloud of ``capacity`` points on ``device``, every slot
+    real (count = capacity), like the reference's
+    ``output_cloud->resize(N_SCAN * Horizon_SCAN)``
+    (BatchMultiBevGen.cpp:98)."""
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return Cloud(xyz=zeros(capacity, 3), intensity=zeros(capacity),
+                 row=zeros(capacity, dtype=torch.int32), col=zeros(capacity, dtype=torch.int32),
+                 t=zeros(capacity, dtype=torch.int64), label=zeros(capacity, dtype=torch.int32),
+                 count=capacity)
+
+
+def stack_clouds(clouds: list[Cloud]) -> Cloud:
+    """Stack equally sized clouds of one device along a new leading batch
+    axis: one ``torch.stack`` a field, ``count`` a (B,) int64 tensor on
+    their device."""
+    fields = {f: torch.stack([getattr(c, f) for c in clouds])
+              for f in ("xyz", "intensity", "row", "col", "t", "label")}
+    counts = torch.tensor([int(c.count) for c in clouds], dtype=torch.int64,
+                          device=fields["xyz"].device)
+    return Cloud(**fields, count=counts)
+
+
+def to_numpy(cloud: Cloud) -> dict[str, np.ndarray]:
+    """All fields as host numpy arrays, in ``pctpu.cloud.to_numpy``'s dict
+    (``t`` as uint32, ``count`` an int) — the inverse of :func:`from_numpy`."""
+    return {
+        "xyz": cloud.xyz.cpu().numpy(),
+        "intensity": cloud.intensity.cpu().numpy(),
+        "row": cloud.row.cpu().numpy(),
+        "col": cloud.col.cpu().numpy(),
+        "t": cloud.t.cpu().numpy().astype(np.uint32),
+        "label": cloud.label.cpu().numpy(),
+        "count": int(cloud.count),
+    }
 
 
 def from_numpy(d: dict, device: torch.device | str = "cuda") -> Cloud:

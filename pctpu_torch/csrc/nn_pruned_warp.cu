@@ -43,6 +43,17 @@
 //     only with __syncwarp (no block-wide barrier, no block max per tile).
 //   nn_finish_kernel: each key to the contract's (index int32, d² f32).
 //
+// A problem axis (pctpu's K1 under jax.vmap in the pair-batched
+// registration stages, pallas_knn.py:430-434, where the pallas_call gains a
+// leading grid axis).  The prep packs Bt targets of one padded length in one
+// launch (grid (tiles, Bt)); a pass searches P problems in the same three
+// launches, the problem on blockIdx.y (seed, finish) or blockIdx.z (main), and
+// problem p reads target p / (P / Bt), so the two yaw guesses of a coarse
+// pair share their pair's prepared target.  Keys, warp boxes and outputs are
+// per problem, so the exactness argument below holds problem by problem and a
+// batched pass is bit-equal to P single passes.  The single-target entries
+// are the Bt = P = 1 case.
+//
 // Exactness.  A group is skipped only when !(gap <= bound): the gap is the
 // box-to-box fma chain, monotone in each step, so no point of a skipped
 // group has a computed d² ≤ its gap; the bound is at least every valid
@@ -164,6 +175,13 @@ nn_prep_kernel(const float* __restrict__ t, const uint8_t* __restrict__ tmask, i
   __shared__ float part[6][32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int ng = n_tiles * 32;
+  // this block's target of the batch
+  const size_t b = blockIdx.y;
+  t += b * nt * 3;
+  tmask += b * nt;
+  tp += b * n_tiles * kTile;
+  gbox += b * 8 * ng;
+  tbox += b * 8 * n_tiles;
   const int g = blockIdx.x * 32 + warp;
   const int p = g * kGroup + lane;
   float x = 0.f, y = 0.f, z = 0.f;
@@ -210,12 +228,20 @@ template <bool kCount>
 __global__ void __launch_bounds__(kWarps * 32)
 nn_seed_kernel(const float* __restrict__ q, const uint8_t* __restrict__ qmask, int nq,
                const float4* __restrict__ tp, const float* __restrict__ gbox, int ng,
-               float thr2, unsigned long long* __restrict__ keys,
+               int per_target, float thr2, unsigned long long* __restrict__ keys,
                float4* __restrict__ wbox, unsigned long long* __restrict__ counter) {
   __shared__ __align__(16) float4 stage[kWarps][kGroup];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int qw = blockIdx.x * kWarps + warp;
   if (qw * 32 >= nq) return;  // whole warps only
+  // this block's problem and the target it searches
+  const size_t p = blockIdx.y, tb = blockIdx.y / per_target;
+  q += p * nq * 3;
+  qmask += p * nq;
+  keys += p * nq;
+  wbox += p * 2 * ((nq + 31) / 32);
+  tp += tb * ng * kGroup;
+  gbox += tb * 8 * ng;
   const int qi = qw * 32 + lane;
   const Query me = load_query(q, qmask, nq, qi);
   const float inf = inf_f();
@@ -278,13 +304,21 @@ template <bool kCount>
 __global__ void __launch_bounds__(kWarps * 32)
 nn_main_kernel(const float* __restrict__ q, const uint8_t* __restrict__ qmask, int nq,
                const float4* __restrict__ tp, const float* __restrict__ gbox, int ng,
-               const float* __restrict__ tbox, int n_tiles, float thr2,
+               const float* __restrict__ tbox, int n_tiles, int per_target, float thr2,
                unsigned long long* __restrict__ keys, const float4* __restrict__ wbox,
                unsigned long long* __restrict__ counter) {
   __shared__ __align__(16) float4 stage[kWarps][2][kGroup];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int qw = blockIdx.x * kWarps + warp;
   if (qw * 32 >= nq) return;
+  const size_t p = blockIdx.z, tb = blockIdx.z / per_target;
+  q += p * nq * 3;
+  qmask += p * nq;
+  keys += p * nq;
+  wbox += p * 2 * ((nq + 31) / 32);
+  tp += tb * n_tiles * kTile;
+  gbox += tb * 8 * ng;
+  tbox += tb * 8 * n_tiles;
   const int tile = blockIdx.y;
   const float4 lo = wbox[2 * qw], hi = wbox[2 * qw + 1];
   const float tgap = box_gap(lo, hi, tbox, n_tiles, tile);
@@ -347,6 +381,11 @@ __global__ void nn_finish_kernel(const uint8_t* __restrict__ qmask, int nq,
                                  int32_t* __restrict__ out_idx, float* __restrict__ out_d2) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= nq) return;
+  const size_t p = blockIdx.y;
+  qmask += p * nq;
+  keys += p * nq;
+  out_idx += p * nq;
+  out_d2 += p * nq;
   const unsigned long long key = keys[i];
   const float d = __uint_as_float((uint32_t)(key >> 32));
   // a key's d² came from sqdist on the winner itself: it is the twin's
@@ -357,26 +396,29 @@ __global__ void nn_finish_kernel(const uint8_t* __restrict__ qmask, int nq,
 }
 
 template <bool kCount>
-int launch_pass(const float* q, const uint8_t* qmask, int nq, const float4* tp,
-                const float* gbox, const float* tbox, int n_tiles, float thr2,
-                void* scratch, int32_t* out_idx, float* out_d2,
+int launch_pass(const float* q, const uint8_t* qmask, int n_problems, int nq,
+                const float4* tp, const float* gbox, const float* tbox, int n_targets,
+                int n_tiles, float thr2, void* scratch, int32_t* out_idx, float* out_d2,
                 unsigned long long* counter, cudaStream_t stream) {
   const int n_qw = (nq + 31) / 32;
   const int blocks = (n_qw + kWarps - 1) / kWarps;
-  // scratch: the warps' boxes (two float4 each), then one key per query
+  const int per_target = n_problems / n_targets;
+  // scratch: every problem's warp boxes (two float4 each), then one key per
+  // query and problem
   float4* wbox = static_cast<float4*>(scratch);
-  unsigned long long* keys = reinterpret_cast<unsigned long long*>(wbox + 2 * n_qw);
+  unsigned long long* keys =
+      reinterpret_cast<unsigned long long*>(wbox + (size_t)2 * n_qw * n_problems);
   const int ng = n_tiles * 32;
-  nn_seed_kernel<kCount><<<blocks, kWarps * 32, 0, stream>>>(q, qmask, nq, tp, gbox, ng,
-                                                             thr2, keys, wbox, counter);
+  nn_seed_kernel<kCount><<<dim3(blocks, n_problems), kWarps * 32, 0, stream>>>(
+      q, qmask, nq, tp, gbox, ng, per_target, thr2, keys, wbox, counter);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  nn_main_kernel<kCount><<<dim3(blocks, n_tiles), kWarps * 32, 0, stream>>>(
-      q, qmask, nq, tp, gbox, ng, tbox, n_tiles, thr2, keys, wbox, counter);
+  nn_main_kernel<kCount><<<dim3(blocks, n_tiles, n_problems), kWarps * 32, 0, stream>>>(
+      q, qmask, nq, tp, gbox, ng, tbox, n_tiles, per_target, thr2, keys, wbox, counter);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  nn_finish_kernel<<<(nq + 255) / 256, 256, 0, stream>>>(qmask, nq, keys, thr2, out_idx,
-                                                         out_d2);
+  nn_finish_kernel<<<dim3((nq + 255) / 256, n_problems), 256, 0, stream>>>(
+      qmask, nq, keys, thr2, out_idx, out_d2);
   return (int)cudaGetLastError();
 }
 
@@ -388,34 +430,56 @@ extern "C" {
 // launch the card refuses never runs, and a later synchronize would not
 // report it.
 
-// The prep kernel: tp (n_tiles·1024 float4), gbox (8, n_tiles·32) and tbox
-// (8, n_tiles) f32, n_tiles = ⌈nt / 1024⌉ ≤ 65,535.
-int pctpu_nn_prep(const float* t, const uint8_t* tmask, int64_t nt, void* tp, float* gbox,
-                  float* tbox, void* stream) {
-  if (nt <= 0 || (nt + kTile - 1) / kTile > 65535) return (int)cudaErrorInvalidValue;
+// The prep kernel over n_targets targets of nt points each (t (n_targets, nt,
+// 3), tmask (n_targets, nt)): tp (n_targets, n_tiles·1024) float4, gbox
+// (n_targets, 8, n_tiles·32) and tbox (n_targets, 8, n_tiles) f32, n_tiles =
+// ⌈nt / 1024⌉ ≤ 65,535, n_targets ≤ 65,535.
+int pctpu_nn_prep_batched(const float* t, const uint8_t* tmask, int64_t n_targets,
+                          int64_t nt, void* tp, float* gbox, float* tbox, void* stream) {
+  if (nt <= 0 || (nt + kTile - 1) / kTile > 65535 || n_targets <= 0 || n_targets > 65535)
+    return (int)cudaErrorInvalidValue;
   const int n_tiles = (int)((nt + kTile - 1) / kTile);
-  nn_prep_kernel<<<n_tiles, kTile, 0, (cudaStream_t)stream>>>(
+  nn_prep_kernel<<<dim3(n_tiles, (unsigned)n_targets), kTile, 0, (cudaStream_t)stream>>>(
       t, tmask, (int)nt, n_tiles, static_cast<float4*>(tp), gbox, tbox);
   return (int)cudaGetLastError();
 }
 
-// One pass on a prepared target: seed, main and finish.  scratch holds
-// 4·⌈nq / 32⌉ + nq 64-bit words.  With a counter, the counting instance
-// also adds 1,024 pairs to it for every (warp, group) scanned.
+// One target: the n_targets = 1 case.
+int pctpu_nn_prep(const float* t, const uint8_t* tmask, int64_t nt, void* tp, float* gbox,
+                  float* tbox, void* stream) {
+  return pctpu_nn_prep_batched(t, tmask, 1, nt, tp, gbox, tbox, stream);
+}
+
+// One pass of n_problems problems (q (n_problems, nq, 3), qmask (n_problems,
+// nq)) on n_targets prepared targets, n_problems a multiple of n_targets:
+// seed, main and finish.  Problem p searches target p / (n_problems /
+// n_targets).  scratch holds n_problems · (4·⌈nq / 32⌉ + nq) 64-bit words;
+// out_idx and out_d2 are (n_problems, nq).  With a counter, the counting
+// instance also adds 1,024 pairs to it for every (warp, group) scanned.
+int pctpu_nn_pruned_batched(const float* q, const uint8_t* qmask, int64_t n_problems,
+                            int64_t nq, const void* tp, const float* gbox, const float* tbox,
+                            int64_t n_targets, int64_t n_tiles, float thr2, void* scratch,
+                            int32_t* out_idx, float* out_d2, void* counter, void* stream) {
+  if (nq <= 0 || nq > 0x7fffff00ll || n_tiles <= 0 || n_tiles > 65535 || n_targets <= 0 ||
+      n_problems <= 0 || n_problems > 65535 || n_problems % n_targets != 0)
+    return (int)cudaErrorInvalidValue;
+  const float4* pts = static_cast<const float4*>(tp);
+  if (counter)
+    return launch_pass<true>(q, qmask, (int)n_problems, (int)nq, pts, gbox, tbox,
+                             (int)n_targets, (int)n_tiles, thr2, scratch, out_idx, out_d2,
+                             static_cast<unsigned long long*>(counter), (cudaStream_t)stream);
+  return launch_pass<false>(q, qmask, (int)n_problems, (int)nq, pts, gbox, tbox,
+                            (int)n_targets, (int)n_tiles, thr2, scratch, out_idx, out_d2,
+                            nullptr, (cudaStream_t)stream);
+}
+
+// One problem on one prepared target: the n_problems = n_targets = 1 case.
 int pctpu_nn_pruned(const float* q, const uint8_t* qmask, int64_t nq, const void* tp,
                     const float* gbox, const float* tbox, int64_t n_tiles, float thr2,
                     void* scratch, int32_t* out_idx, float* out_d2, void* counter,
                     void* stream) {
-  if (nq <= 0 || nq > 0x7fffff00ll || n_tiles <= 0 || n_tiles > 65535)
-    return (int)cudaErrorInvalidValue;
-  const float4* pts = static_cast<const float4*>(tp);
-  if (counter)
-    return launch_pass<true>(q, qmask, (int)nq, pts, gbox, tbox, (int)n_tiles, thr2,
-                             scratch, out_idx, out_d2,
-                             static_cast<unsigned long long*>(counter),
-                             (cudaStream_t)stream);
-  return launch_pass<false>(q, qmask, (int)nq, pts, gbox, tbox, (int)n_tiles, thr2, scratch,
-                            out_idx, out_d2, nullptr, (cudaStream_t)stream);
+  return pctpu_nn_pruned_batched(q, qmask, 1, nq, tp, gbox, tbox, 1, n_tiles, thr2, scratch,
+                                 out_idx, out_d2, counter, stream);
 }
 
 }  // extern "C"

@@ -10,7 +10,7 @@ the same variants are instances of the CUDA template ``csrc/nn_pruned.cu``
 (``cuda_knn.nn_1_pruned_variant``; the module docstring there maps each
 script mode to its Hopper form), run on the same inputs: the bench
 registration scene (``experiments.scene``) and its moved copy, each voxelized
-at 0.2 m through the port's ``_stage_voxel_full``, cut to the 49,152 bucket
+at 0.2 m by ``ops.voxel.voxel_downsample``, cut to the 49,152 bucket
 and Morton-sorted.  The queries are not moved toward the target.
 
 Runs, each at thr 1 m (ICP correspondences) and with no threshold (fitness):
@@ -52,7 +52,7 @@ from pctpu_torch.config import RegistrationConfig
 from pctpu_torch.experiments.card import cuda_ms, mismatches, nvidia_smi_line
 from pctpu_torch.experiments.scene import moved_copy, registration_scene
 from pctpu_torch.ops import cuda_knn
-from pctpu_torch.pipelines.registration import _stage_voxel_full
+from pctpu_torch.ops.voxel import voxel_downsample
 
 FINE_BUCKET = 49152
 EXACT_MODES = ("prod", "explicit2", "onehot_exact")
@@ -77,7 +77,7 @@ def _inputs(cpu_check: bool, device: torch.device, cfg: RegistrationConfig):
         xyz, lab = registration_scene()
         c1 = make_cloud(xyz, label=lab, capacity=65536, device=device)
         c2 = make_cloud(moved_copy(xyz), label=lab, capacity=65536, device=device)
-        a, b = _stage_voxel_full(c1, c2, cfg.voxel_leaf)
+        a, b = (voxel_downsample(c.xyz, c.valid_mask(), cfg.voxel_leaf) for c in (c1, c2))
         q, qm = a[0][:bucket], a[1][:bucket]
         t, tm = b[0][:bucket], b[1][:bucket]
     q, qm = cuda_knn.spatial_sort_payload(q, qm)

@@ -52,13 +52,25 @@ def pose(yaw_deg: float, tx: float, ty: float) -> np.ndarray:
 TREE_POSES = (pose(0.0, 0.0, 0.0), pose(17.0, 1.5, -2.0), pose(-25.0, -3.0, 1.0),
               pose(178.0, 2.0, 2.5))
 TREE_PAIRS = ((0, 1, 3.0), (1, 2, -2.0), (2, 0, 4.0), (0, 3, -3.0), (3, 1, 2.5))
+# the 20-pair list of the pair-batched runs (one batch of 16 and a tail of
+# 4): the 12 ordered pairs of the four clouds, then 8 of them again with
+# other guess offsets, every offset within ±4°
+_ORDERED = tuple((q, m) for q in range(4) for m in range(4) if q != m)
+TREE_PAIRS_20 = tuple(
+    (q, m, off) for (q, m), off in zip(
+        _ORDERED, (3.0, -2.0, 4.0, -3.0, 2.5, -1.5, 3.5, -4.0, 1.0, -2.5, 2.0, -3.5))
+) + tuple(
+    (*_ORDERED[k], off) for k, off in zip(
+        (0, 2, 4, 6, 8, 10, 1, 3), (-1.0, 1.5, -3.0, 0.5, -0.5, 2.5, 3.0, -2.0))
+)
 
 
 def registration_tree(root: str, seed: int = 3) -> None:
     """Write the input tree of both registration CLIs under ``root``: the
     bench scene moved to each of ``TREE_POSES`` with 1 cm noise
     (``clouds/000000.pcd`` ...), ``match_result.txt`` with ``TREE_PAIRS``
-    and their yaw guesses, and ``warmup.txt`` with the first pair alone."""
+    and their yaw guesses, ``match_result_20.txt`` with ``TREE_PAIRS_20``,
+    and ``warmup.txt`` with the first pair alone."""
     from pctpu_torch import make_cloud
     from pctpu_torch.io.pcd import save_cloud_pcd
 
@@ -77,6 +89,8 @@ def registration_tree(root: str, seed: int = 3) -> None:
 
     with open(os.path.join(root, "match_result.txt"), "w") as f:
         f.writelines(guess(*p) for p in TREE_PAIRS)
+    with open(os.path.join(root, "match_result_20.txt"), "w") as f:
+        f.writelines(guess(*p) for p in TREE_PAIRS_20)
     with open(os.path.join(root, "warmup.txt"), "w") as f:
         f.write(guess(*TREE_PAIRS[0]))
 

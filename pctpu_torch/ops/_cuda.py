@@ -45,7 +45,8 @@ NVCC_FLAGS = (
 )
 
 launch_counts: dict[str, int] = {
-    "nn_prep": 0, "nn_pruned": 0, "nn_pruned_count": 0, "segment_sum4": 0, "nn_fused": 0,
+    "nn_prep": 0, "nn_pruned": 0, "nn_pruned_count": 0, "nn_prep_batched": 0,
+    "nn_pruned_batched": 0, "segment_sum4": 0, "nn_fused": 0,
     "nn_variant": 0, "ground_sums": 0, "bev_raster": 0, "segment_sum_walk": 0,
     "nn_fused_v1": 0, "bev_raster_v1": 0,
 }
@@ -131,6 +132,12 @@ def library() -> ctypes.CDLL:
             p, p, i64, p, p, p, i64, ctypes.c_float, p, p, p, p, p,
         ]
         lib.pctpu_nn_pruned.restype = ctypes.c_int
+        lib.pctpu_nn_prep_batched.argtypes = [p, p, i64, i64, p, p, p, p]
+        lib.pctpu_nn_prep_batched.restype = ctypes.c_int
+        lib.pctpu_nn_pruned_batched.argtypes = [
+            p, p, i64, i64, p, p, p, i64, i64, ctypes.c_float, p, p, p, p, p,
+        ]
+        lib.pctpu_nn_pruned_batched.restype = ctypes.c_int
         lib.pctpu_nn_variant.argtypes = [
             p, p, i64, p, p, i64, p, i64, p, i64, ctypes.c_int, ctypes.c_float,
             p, p, p,

@@ -10,7 +10,13 @@ target and its mask once — float4 points with masked ones at +inf, and the
 boxes of each 32-point group and 1,024-point tile — so that a caller
 searching one target many times (``icp``) pays for it once; a pass on a
 prepared target is three launches (seed, main, finish) and creates no
-tensor on the card but its outputs and scratch.  The Morton sort key and
+tensor on the card but its outputs and scratch.  ``prepare_targets`` and
+``nn_1_pruned_batched`` are the same kernels over a problem axis (pctpu's
+kernel under ``jax.vmap`` in the pair-batched registration stages): one prep
+launch packs Bt targets of one length, and one pass of three launches
+searches P problems, problem p in target p // (P / Bt), bit-equal problem by
+problem to P single passes; their twins run the single twins per target and
+problem.  The Morton sort key and
 the payload sort are torch ops, as in pctpu they are XLA ops around the
 kernel.
 
@@ -78,8 +84,10 @@ GROUP = 32
 TT = 1024
 TQ = 128
 _BIG = 3e38
-# the main launch's grid holds one y row per target tile
+# the main launch's grid holds one y row per target tile, one z row per
+# problem
 _MAX_TARGETS = 65535 * TT
+_MAX_PROBLEMS = 65535
 # nn_1_fused's target tile and the queries of a block (csrc/nn_fused.cu's
 # kTile, kQueries)
 FUSED_TILE = 512
@@ -98,10 +106,10 @@ VARIANT_TILES = tuple((tq, tt) for tq, tt, code in _cuda.NN_INSTANCES
 
 def morton_sort_key(xyz: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """16-bit 2-D Morton code over (x, y) — a cheap locality-preserving sort
-    key (int32).  Masked points get the maximum key so they sort to the end."""
-    inf = torch.tensor(float("inf"), device=xyz.device)
-    lo = torch.where(mask[:, None], xyz, inf).amin(dim=0)
-    hi = torch.where(mask[:, None], xyz, -inf).amax(dim=0)
+    key (int32), of (N, 3) points or of each row of (P, N, 3).  Masked points
+    get the maximum key so they sort to the end."""
+    lo = torch.where(mask[..., None], xyz, float("inf")).amin(dim=-2, keepdim=True)
+    hi = torch.where(mask[..., None], xyz, -float("inf")).amax(dim=-2, keepdim=True)
     span = torch.clamp_min(hi - lo, 1e-6)
     q = torch.clamp(((xyz - lo) / span * 255.0).to(torch.int32), 0, 255)
 
@@ -111,15 +119,23 @@ def morton_sort_key(xyz: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         v = (v | (v << 1)) & 0x5555
         return v
 
-    key = spread(q[:, 0]) | (spread(q[:, 1]) << 1)
+    key = spread(q[..., 0]) | (spread(q[..., 1]) << 1)
     return torch.where(mask, key, torch.full_like(key, 0x7FFFFFFF))
 
 
+def gather_points(x: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """``x`` (..., N) or (..., N, C) reordered along its point axis by
+    ``order`` (..., N): ``x[order]`` for one cloud, row by row for a batch."""
+    axis = order.dim() - 1
+    return torch.take_along_dim(x, order if x.dim() == order.dim() else order[..., None], axis)
+
+
 def spatial_sort_payload(xyz: torch.Tensor, mask: torch.Tensor, *extras):
-    """Stable Morton sort carrying payload tensors (indexed on dim 0) along.
+    """Stable Morton sort carrying payload tensors (indexed on the point
+    axis) along, of one cloud (N, 3) or each cloud of a batch (P, N, 3).
     Returns (xyz_s, mask_s, *extras_s)."""
-    order = torch.sort(morton_sort_key(xyz, mask), stable=True).indices
-    return (xyz[order], mask[order], *(e[order] for e in extras))
+    order = torch.sort(morton_sort_key(xyz, mask), dim=-1, stable=True).indices
+    return tuple(gather_points(x, order) for x in (xyz, mask, *extras))
 
 
 def _tile_bboxes(xyz: torch.Tensor, mask: torch.Tensor, tile: int) -> torch.Tensor:
@@ -188,6 +204,57 @@ def prepare_target(target: torch.Tensor, target_mask: torch.Tensor) -> PreparedT
     return PreparedTarget(packed, group_box, tile_box, n)
 
 
+
+@dataclasses.dataclass(frozen=True)
+class PreparedTargets:
+    """Bt targets of one length as :func:`nn_1_pruned_batched`'s kernels read
+    them: :class:`PreparedTarget`'s fields with a leading target axis
+    (``packed`` (Bt, ⌈n / 1024⌉·1024, 4), ``group_box`` (Bt, 8, groups),
+    ``tile_box`` (Bt, 8, tiles)); ``n`` the targets' length."""
+
+    packed: torch.Tensor
+    group_box: torch.Tensor
+    tile_box: torch.Tensor
+    n: int
+
+
+def prepare_targets_reference(target: torch.Tensor,
+                              target_mask: torch.Tensor) -> PreparedTargets:
+    """Plain torch twin of the batched prep: :func:`prepare_target_reference`
+    per target, stacked."""
+    preps = [prepare_target_reference(t, m) for t, m in zip(target, target_mask)]
+    return PreparedTargets(*(torch.stack([getattr(p, f) for p in preps])
+                             for f in ("packed", "group_box", "tile_box")), target.shape[1])
+
+
+def prepare_targets(target: torch.Tensor, target_mask: torch.Tensor) -> PreparedTargets:
+    """Pack Bt targets ``target`` (Bt, T, 3) f32 and ``target_mask`` (Bt, T)
+    bool for :func:`nn_1_pruned_batched` in one launch of the prep kernel
+    (grid tiles × Bt): CUDA tensors launch it (or raise), CPU tensors run
+    :func:`prepare_targets_reference`."""
+    dev = target.device
+    if dev.type == "cpu":
+        return prepare_targets_reference(target, target_mask)
+    if dev.type != "cuda":
+        raise ValueError(f"prepare_targets: unsupported device {dev}")
+    if target.dim() != 3:
+        raise ValueError(f"prepare_targets: target must be (Bt, T, 3), got {tuple(target.shape)}")
+    bt, n = target.shape[:2]
+    _cuda.require(target, "target", torch.float32, (bt, n, 3), dev)
+    _cuda.require(target_mask, "target_mask", torch.bool, (bt, n), dev)
+    if not 0 < n <= _MAX_TARGETS or not 0 < bt <= _MAX_PROBLEMS:
+        raise ValueError(f"prepare_targets: unsupported sizes Bt={bt}, T={n}")
+    tiles = -(-n // TT)
+    packed = torch.empty((bt, tiles * TT, 4), dtype=torch.float32, device=dev)
+    group_box = torch.empty((bt, 8, tiles * TT // GROUP), dtype=torch.float32, device=dev)
+    tile_box = torch.empty((bt, 8, tiles), dtype=torch.float32, device=dev)
+    rc = _cuda.library().pctpu_nn_prep_batched(
+        target.data_ptr(), target_mask.data_ptr(), bt, n, packed.data_ptr(),
+        group_box.data_ptr(), tile_box.data_ptr(), _cuda.stream_ptr(dev))
+    _cuda.check(rc, "nn_prep_batched")
+    return PreparedTargets(packed, group_box, tile_box, n)
+
+
 def _pad_rows(x: torch.Tensor, multiple: int) -> torch.Tensor:
     rem = (-x.shape[0]) % multiple
     if not rem:
@@ -236,36 +303,85 @@ def nn_1_pruned_reference(
                    torch.isfinite(best), _thr2(max_distance))
 
 
-def _pass_launcher(query, query_mask, prepared: PreparedTarget, thr2, counter=None):
-    """Validate CUDA queries for a pass of ``csrc/nn_pruned_warp.cu`` on a
-    prepared target and allocate its outputs and scratch.  Returns (launch,
-    idx, d2): each ``launch()`` runs the pass (seed, main and finish) into
-    the outputs and counts it once.  With ``counter`` (an int64 CUDA
-    tensor) the counting instance runs and adds the pairs it visited."""
+def nn_1_pruned_batched_reference(
+    query: torch.Tensor,
+    query_mask: torch.Tensor,
+    target: torch.Tensor,
+    target_mask: torch.Tensor,
+    max_distance: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch twin of the batched pass: :func:`nn_1_pruned_reference`
+    for each problem p of ``query`` (P, Q, 3) in target p // (P / Bt) of
+    ``target`` (Bt, T, 3); (index (P, Q) int32, d² (P, Q) f32)."""
+    per = _per_target(query.shape[0], target.shape[0])
+    outs = [nn_1_pruned_reference(query[p], query_mask[p], target[p // per],
+                                  target_mask[p // per], max_distance)
+            for p in range(query.shape[0])]
+    return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+
+def _per_target(n_problems: int, n_targets: int) -> int:
+    if not 0 < n_problems <= _MAX_PROBLEMS:
+        raise ValueError(f"nn_1_pruned_batched: P={n_problems} problems, the grid takes "
+                         f"1 to {_MAX_PROBLEMS}")
+    if n_targets <= 0 or n_problems % n_targets:
+        raise ValueError(f"nn_1_pruned_batched: P={n_problems} problems is no multiple of "
+                         f"Bt={n_targets} targets")
+    return n_problems // n_targets
+
+
+def _pass_launcher(query, query_mask, prepared, thr2, counter=None):
+    """Validate CUDA queries for a pass of ``csrc/nn_pruned_warp.cu`` and
+    allocate its outputs and scratch: ``query`` (Q, 3) on a
+    :class:`PreparedTarget`, or (P, Q, 3) on :class:`PreparedTargets`.
+    Returns (launch, idx, d2): each ``launch()`` runs the pass (seed, main and
+    finish) into the outputs and counts it once, as ``nn_pruned`` or
+    ``nn_pruned_batched``.  With ``counter`` (an int64 CUDA tensor) the
+    counting instance runs, counted as ``nn_pruned_count``, and adds the
+    pairs it visited."""
     dev = query.device
     if dev.type != "cuda":
         raise ValueError(f"the nn_pruned kernels need CUDA tensors, got {dev}")
-    nq = query.shape[0]
-    _cuda.require(query, "query", torch.float32, (-1, 3), dev)
-    _cuda.require(query_mask, "query_mask", torch.bool, (nq,), dev)
-    tiles = prepared.tile_box.shape[1]
-    _cuda.require(prepared.packed, "prepared.packed", torch.float32, (tiles * TT, 4), dev)
+    batched = isinstance(prepared, PreparedTargets)
+    lead = query.shape[:1] if batched else ()
+    if query.dim() != len(lead) + 2:
+        raise ValueError(f"query has shape {tuple(query.shape)}")
+    nq = query.shape[-2]
+    n_problems = query.shape[0] if batched else 1
+    n_targets = prepared.packed.shape[0] if batched else 1
+    _per_target(n_problems, n_targets)
+    _cuda.require(query, "query", torch.float32, (*lead, nq, 3), dev)
+    _cuda.require(query_mask, "query_mask", torch.bool, (*lead, nq), dev)
+    tiles = prepared.tile_box.shape[-1]
+    tl = (n_targets,) if batched else ()
+    _cuda.require(prepared.packed, "prepared.packed", torch.float32, (*tl, tiles * TT, 4), dev)
     _cuda.require(prepared.group_box, "prepared.group_box", torch.float32,
-                  (8, tiles * TT // GROUP), dev)
-    _cuda.require(prepared.tile_box, "prepared.tile_box", torch.float32, (8, tiles), dev)
+                  (*tl, 8, tiles * TT // GROUP), dev)
+    _cuda.require(prepared.tile_box, "prepared.tile_box", torch.float32, (*tl, 8, tiles), dev)
     if not 0 < nq < 2**31 - 256:
         raise ValueError(f"nn_pruned: unsupported size Q={nq}")
-    idx = torch.empty((nq,), dtype=torch.int32, device=dev)
-    d2 = torch.empty((nq,), dtype=torch.float32, device=dev)
-    # the query warps' boxes (four words each), then one 64-bit key a query
-    scratch = torch.empty((4 * -(-nq // 32) + nq,), dtype=torch.int64, device=dev)
-    fn = _cuda.library().pctpu_nn_pruned
-    name = "nn_pruned" if counter is None else "nn_pruned_count"
+    idx = torch.empty((*lead, nq), dtype=torch.int32, device=dev)
+    d2 = torch.empty((*lead, nq), dtype=torch.float32, device=dev)
+    # each problem's query warps' boxes (four words each), then one 64-bit key
+    # a query
+    scratch = torch.empty((n_problems * (4 * -(-nq // 32) + nq),), dtype=torch.int64,
+                          device=dev)
+    lib = _cuda.library()
+    name = "nn_pruned_count" if counter is not None else (
+        "nn_pruned_batched" if batched else "nn_pruned")
     count_ptr = None if counter is None else counter.data_ptr()
+    ptrs = (prepared.packed.data_ptr(), prepared.group_box.data_ptr(),
+            prepared.tile_box.data_ptr())
 
     def launch():
-        rc = fn(query.data_ptr(), query_mask.data_ptr(), nq, prepared.packed.data_ptr(),
-                prepared.group_box.data_ptr(), prepared.tile_box.data_ptr(), tiles, thr2,
+        if batched:
+            rc = lib.pctpu_nn_pruned_batched(
+                query.data_ptr(), query_mask.data_ptr(), n_problems, nq, *ptrs, n_targets,
+                tiles, thr2, scratch.data_ptr(), idx.data_ptr(), d2.data_ptr(), count_ptr,
+                _cuda.stream_ptr(dev))
+        else:
+            rc = lib.pctpu_nn_pruned(
+                query.data_ptr(), query_mask.data_ptr(), nq, *ptrs, tiles, thr2,
                 scratch.data_ptr(), idx.data_ptr(), d2.data_ptr(), count_ptr,
                 _cuda.stream_ptr(dev))
         _cuda.check(rc, name)
@@ -312,8 +428,34 @@ def nn_1_pruned(
     return idx, d2
 
 
-def pairs_visited(query, query_mask, prepared: PreparedTarget, max_distance=None) -> int:
-    """The (query, target) pairs one pass of :func:`nn_1_pruned` scans on the
+def nn_1_pruned_batched(
+    query: torch.Tensor,
+    query_mask: torch.Tensor,
+    prepared: PreparedTargets,
+    max_distance: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`nn_1_pruned` for P problems at once: ``query`` (P, Q, 3) f32 and
+    ``query_mask`` (P, Q) bool on ``prepared`` = ``prepare_targets(target
+    (Bt, T, 3), mask (Bt, T))``, P a multiple of Bt (at most 65,535), problem
+    p searching target p // (P / Bt).  Returns (index (P, Q) int32, d² (P, Q)
+    f32), problem by problem what :func:`nn_1_pruned` returns.  CUDA tensors
+    launch the three kernels once for all problems (or raise); CPU tensors
+    run :func:`nn_1_pruned_batched_reference` over the packed points."""
+    if prepared.packed.device != query.device:
+        raise ValueError(f"nn_1_pruned_batched: prepared targets on "
+                         f"{prepared.packed.device}, queries on {query.device}")
+    if query.device.type == "cpu":
+        pts = prepared.packed[:, :prepared.n, :3]
+        return nn_1_pruned_batched_reference(query, query_mask, pts,
+                                             torch.isfinite(pts).all(dim=2), max_distance)
+    launch, idx, d2 = _pass_launcher(query, query_mask, prepared, _thr2(max_distance))
+    launch()
+    return idx, d2
+
+
+def pairs_visited(query, query_mask, prepared, max_distance=None) -> int:
+    """The (query, target) pairs one pass of :func:`nn_1_pruned` (or, on
+    :class:`PreparedTargets`, of :func:`nn_1_pruned_batched`) scans on the
     card — 1,024 for every (32-query warp, 32-point group) it visits — from
     the kernels' counting instance (synchronises)."""
     counter = torch.zeros((1,), dtype=torch.int64, device=query.device)

@@ -1,5 +1,5 @@
 """Blocked brute-force 1-NN (the port of ``pctpu/ops/knn.py::nn_1``), the
-CPU path of ICP.
+CPU path of ICP, and the small-target k-NN ``knn``.
 
 Winners are chosen on the expanded |q|² − 2q·t + |t|² score (one full-f32
 matmul per query tile, as pctpu does), so a winner can differ from an
@@ -68,3 +68,35 @@ def nn_1(
         idxs.append(idx.to(torch.int32))
         dists.append(torch.where(qm & target_mask[idx], best, inf))
     return torch.cat(idxs), torch.cat(dists)
+
+
+# pctpu's jitted name for nn_1; torch runs eagerly, so it is the same function
+nn_1_jit = nn_1
+
+
+def knn(
+    query: torch.Tensor,
+    query_mask: torch.Tensor,
+    target: torch.Tensor,
+    target_mask: torch.Tensor,
+    k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """k-NN for small target sets (pose tables): the full (Q, T) score matrix
+    and its k smallest, as pctpu's ``knn``.  Returns (indices (Q, k') int32,
+    squared distances (Q, k') f32) ascending, k' = min(k, T) like pcl
+    nearestKSearch.  Winners are picked on the expanded score; their
+    distances are re-derived from the coordinates, +inf where the query or
+    the winner is masked — as ``sum(diff * diff)`` with each product rounded,
+    the form pctpu's eager (unjitted) ``knn`` computes, not :func:`sq_dist`'s
+    fused one.  ``lax.top_k`` keeps the lower index among equal scores; the
+    first k of a stable ascending sort do the same."""
+    k = min(k, target.shape[0])
+    inf = torch.tensor(float("inf"), device=query.device)
+    d = ((query * query).sum(dim=1, keepdim=True) - 2.0 * (query @ target.T)) + torch.where(
+        target_mask, (target * target).sum(dim=1), inf)[None, :]
+    score, idx = torch.sort(d, dim=1, stable=True)
+    score, idx = score[:, :k], idx[:, :k]
+    diff = query[:, None, :] - target[idx]
+    exact = (diff * diff).sum(dim=-1)
+    found = torch.isfinite(score) & query_mask[:, None] & target_mask[idx]
+    return idx.to(torch.int32), torch.where(found, exact, inf)

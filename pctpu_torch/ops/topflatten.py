@@ -10,7 +10,9 @@ cell, ties in input order (D14).
 
 The per-cell sort is one global stable sort by (cell, -z), done as two
 stable passes (least significant key first); a point's rank inside its cell
-is its sorted position minus the cell's start."""
+is its sorted position minus the cell's start.  A batch of clouds (fields
+with a leading B, as pctpu's under ``jax.vmap``) is sorted row by row along
+its point axis."""
 
 from __future__ import annotations
 
@@ -23,14 +25,19 @@ from pctpu_torch.ops.rounding import c_round
 
 
 def _stable_argsort(key: torch.Tensor) -> torch.Tensor:
-    return torch.sort(key, stable=True).indices
+    return torch.sort(key, dim=-1, stable=True).indices
+
+
+def _take(x: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    return torch.take_along_dim(x, order, dim=-1)
 
 
 def extract_top_and_flatten(
     cloud: Cloud, cfg: TopFlattenConfig = TopFlattenConfig()
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (xyz (N,3) with z=0, valid mask (N,), count as a 0-d int64
-    tensor) — compacted to the front in reference order, zero-padded."""
+    tensor) — compacted to the front in reference order, zero-padded; for a
+    batched cloud the same with a leading B (count (B,))."""
     dev = cloud.device
     ncell = cfg.num_grid_x * cfg.num_grid_y
     gx = c_round((cloud.x + cfg.max_radius_x) / cfg.grid_res_x).to(torch.int64)
@@ -48,39 +55,38 @@ def extract_top_and_flatten(
     # +0.0: a CUDA radix sort orders the two zeros by their bits, where the
     # reference comparison (and pctpu's) treats them as equal
     by_z = _stable_argsort(-cloud.z + 0.0)
-    perm = by_z[_stable_argsort(cell[by_z])]
-    cell_s, x_s, y_s = cell[perm], cloud.x[perm], cloud.y[perm]
+    perm = _take(by_z, _stable_argsort(_take(cell, by_z)))
+    cell_s, x_s, y_s = _take(cell, perm), _take(cloud.x, perm), _take(cloud.y, perm)
 
     # per-point run geometry from boundary scans: rank inside the cell and
     # the cell's total count
-    i = torch.arange(p, device=dev)
-    change = cell_s[1:] != cell_s[:-1]
-    one = torch.ones((1,), dtype=torch.bool, device=dev)
-    is_start = torch.cat([one, change])
-    is_end = torch.cat([change, one])
-    run_start = torch.cummax(torch.where(is_start, i, 0), dim=0).values
+    i = torch.arange(p, device=dev).expand_as(cell_s)
+    change = cell_s[..., 1:] != cell_s[..., :-1]
+    one = torch.ones_like(cell_s[..., :1], dtype=torch.bool)
+    is_start = torch.cat([one, change], dim=-1)
+    is_end = torch.cat([change, one], dim=-1)
+    run_start = torch.cummax(torch.where(is_start, i, 0), dim=-1).values
     run_end = torch.flip(
-        torch.cummin(torch.flip(torch.where(is_end, i, p), [0]), dim=0).values, [0]
+        torch.cummin(torch.flip(torch.where(is_end, i, p), [-1]), dim=-1).values, [-1]
     )
     rank = i - run_start
     count_pt = (run_end - run_start + 1).to(torch.float32)
     # C++: round(0.2f * n) — the f32 literal product
-    frac = torch.tensor(np.float32(cfg.top_fraction), device=dev)
-    k_pt = c_round(frac * count_pt).to(torch.int64)
+    k_pt = c_round(float(np.float32(cfg.top_fraction)) * count_pt).to(torch.int64)
     k_pt = torch.where(count_pt >= cfg.min_grid_points, k_pt, 0)
     keep = (rank < k_pt) & (cell_s < ncell)
 
     # compact kept points to the front, preserving sorted (reference) order
-    nkept = keep.sum()
+    nkept = keep.sum(dim=-1)
     order = _stable_argsort((~keep).to(torch.int32))
-    keep_c = i < nkept
+    keep_c = i < nkept[..., None]
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     xyz = torch.stack(
         [
-            torch.where(keep_c, x_s[order], zero),
-            torch.where(keep_c, y_s[order], zero),
-            torch.zeros((p,), dtype=torch.float32, device=dev),  # flatten
+            torch.where(keep_c, _take(x_s, order), zero),
+            torch.where(keep_c, _take(y_s, order), zero),
+            torch.zeros(keep_c.shape, dtype=torch.float32, device=dev),  # flatten
         ],
-        dim=1,
+        dim=-1,
     )
     return xyz, keep_c, nkept

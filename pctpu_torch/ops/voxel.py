@@ -14,6 +14,11 @@ On CUDA that is the kernel ``csrc/segment_sum.cu`` (a warp per tile of 32
 rows, heads adding side by side, long runs carried on with their rows in
 flight), because ``index_add_`` sums with atomics in an order that changes
 from run to run.
+
+A batch of B clouds (B, N, 3) is one stable sort of B·N rows on a
+cloud-major key (b << 31 | voxel key) and one segment-sum call whose ids
+are offset by b·N: each voxel's rows are still added in input order, so each
+cloud's centroids are bit-equal to its own unbatched grid.
 """
 
 from __future__ import annotations
@@ -135,32 +140,42 @@ def voxel_segments(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The voxel grid's sort: rows (x, y, z, 1) of the valid points in
     ascending-voxel order (stable, so input order inside a voxel), their
-    voxel ids (int32, -1 past the valid rows) and the voxel count (0-d int64) — the
-    inputs of :func:`segment_sum_sorted`."""
+    voxel ids (int32, -1 past the valid rows) and the voxel count (int64) —
+    the inputs of :func:`segment_sum_sorted`.  For one cloud (N, 3): N rows,
+    ids from 0, a 0-d count.  For a batch (B, N, 3): B·N rows, cloud b's
+    rows and ids from b·N, a (B,) count."""
+    single = xyz.dim() == 2
+    if single:
+        xyz, mask = xyz[None], mask[None]
     dev = xyz.device
+    b, n = mask.shape
     inv = 1.0 / leaf
-    big = torch.tensor(1e30, dtype=torch.float32, device=dev)
-    mins = torch.where(mask[:, None], xyz, big).amin(dim=0)
-    maxs = torch.where(mask[:, None], xyz, -big).amax(dim=0)
+    mins = torch.where(mask[..., None], xyz, 1e30).amin(dim=1, keepdim=True)
+    maxs = torch.where(mask[..., None], xyz, -1e30).amax(dim=1, keepdim=True)
     ijk = torch.floor(xyz * inv).to(torch.int64)
     min_b = torch.floor(mins * inv).to(torch.int64)
     max_b = torch.floor(maxs * inv).to(torch.int64)
     div = max_b - min_b + 1
     # extent clamp (D13): x/y cap at 4096 cells each, z gets what remains of
     # a 2³⁰-key budget
-    dx = torch.clamp_max(div[0], 4096)
-    dy = torch.clamp_max(div[1], 4096)
-    dz = torch.minimum(div[2], torch.clamp_min((1 << 30) // (dx * dy), 1))
-    div = torch.stack([dx, dy, dz])
+    dx = torch.clamp_max(div[..., 0], 4096)
+    dy = torch.clamp_max(div[..., 1], 4096)
+    dz = torch.minimum(div[..., 2], torch.clamp_min((1 << 30) // (dx * dy), 1))
+    div = torch.stack([dx, dy, dz], dim=-1)
     rel = torch.minimum(torch.clamp_min(ijk - min_b, 0), div - 1)
-    key = rel[:, 0] + rel[:, 1] * div[0] + rel[:, 2] * div[0] * div[1]
-    key = torch.where(mask, key, div[0] * div[1] * div[2])
+    key = rel[..., 0] + rel[..., 1] * dx + rel[..., 2] * dx * dy
+    # keys stay below 2³¹ (masked points: dx·dy·dz ≤ 2³⁰), so the cloud's
+    # index above them keeps each cloud's rows together
+    key = torch.where(mask, key, dx * dy * dz)
+    key = key + (torch.arange(b, device=dev) << 31)[:, None]
 
-    order = torch.sort(key, stable=True).indices
-    key_s, xyz_s, mask_s = key[order], xyz[order], mask[order]
+    order = torch.sort(key.reshape(-1), stable=True).indices
+    key_s, xyz_s, mask_s = key.reshape(-1)[order], xyz.reshape(-1, 3)[order], mask.reshape(-1)[order]
     prev = torch.cat([key_s.new_full((1,), -1), key_s[:-1]])
-    head = (key_s != prev) & mask_s
-    seg = torch.where(mask_s, torch.cumsum(head, dim=0, dtype=torch.int32) - 1, -1)
+    head = ((key_s != prev) & mask_s).reshape(b, n)
+    local = torch.cumsum(head, dim=1, dtype=torch.int32) - 1
+    offset = (torch.arange(b, device=dev, dtype=torch.int32) * n)[:, None]
+    seg = torch.where(mask_s, (local + offset).reshape(-1), -1)
     values = torch.cat(
         [
             torch.where(mask_s[:, None], xyz_s, 0.0),
@@ -168,7 +183,8 @@ def voxel_segments(
         ],
         dim=1,
     )
-    return values, seg, head.sum()
+    nvox = head.sum(dim=1)
+    return values, seg, nvox[0] if single else nvox
 
 
 def voxel_downsample(
@@ -176,12 +192,13 @@ def voxel_downsample(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(xyz (N,3), valid (N,), leaf) → (centroids (N,3), valid (N,), count as
     a 0-d int64 tensor).  Centroids are compacted to the front in
-    ascending-voxel order."""
+    ascending-voxel order.  A batch (B, N, 3) gives the same with a leading
+    B (count (B,)), in one sort and one segment-sum call."""
     values, seg, nvox = voxel_segments(xyz, mask, leaf)
-    # rows at and past nvox are masked below: no fill
-    acc = segment_sum_sorted(values, seg, fill=False)
-    valid = torch.arange(xyz.shape[0], device=xyz.device) < nvox
+    # rows at and past each cloud's nvox are masked below: no fill
+    acc = segment_sum_sorted(values, seg, fill=False).reshape(*xyz.shape[:-1], 4)
+    valid = torch.arange(xyz.shape[-2], device=xyz.device) < nvox[..., None]
     centroids = torch.where(
-        valid[:, None], acc[:, :3] / torch.clamp_min(acc[:, 3], 1.0)[:, None], 0.0
+        valid[..., None], acc[..., :3] / torch.clamp_min(acc[..., 3], 1.0)[..., None], 0.0
     )
     return centroids, valid, nvox

@@ -123,6 +123,66 @@ def test_nn_prep(dev):
             assert a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32)), n
 
 
+def _batched_cases(dev):
+    """(name, queries (P, Q, 3), masks, targets (Bt, T, 3), masks) for the
+    batched pass: ragged valid counts, a target with no valid point, shared
+    targets (P > Bt), P = 1, and ties across groups and tiles."""
+    rng = np.random.default_rng(21)
+
+    def batch(n_problems, n_targets, nq, nt):
+        q = torch.stack([tk.spatial_sort_payload(*_cloud(rng, nq, dev))[0]
+                         for _ in range(n_problems)])
+        t = torch.stack([tk.spatial_sort_payload(*_cloud(rng, nt, dev))[0]
+                         for _ in range(n_targets)])
+        qm = torch.from_numpy(rng.random((n_problems, nq)) >= 0.05).to(dev)
+        tm = torch.from_numpy(rng.random((n_targets, nt)) >= 0.05).to(dev)
+        qm[0, nq // 3:] = False
+        tm[0, nt // 2:] = False
+        if n_targets > 1:
+            tm[-1] = False
+        return q, qm, t, tm
+
+    ties = _ties(dev)
+    return [
+        ("16 problems, 16 targets", batch(16, 16, 3000, 5000)),
+        ("32 problems sharing 16 targets", batch(32, 16, 2000, 4100)),
+        ("6 problems sharing 2 targets", batch(6, 2, 777, 3 * 1024 + 5)),
+        ("P = 1", batch(1, 1, 4000, 9000)),
+        ("ties, 3 problems on 1 target", (ties[0].expand(3, -1, -1).contiguous(),
+                                           ties[1].expand(3, -1).contiguous(),
+                                           ties[2][None].contiguous(), ties[3][None].contiguous())),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("md", [None, 2.0])
+def test_nn_pruned_batched(dev, md):
+    """The batched prep and pass (one prep launch, three pass launches) bit
+    for bit against P unbatched kernel calls and against the twin."""
+    for name, (q, qm, t, tm) in _batched_cases(dev):
+        n_problems, n_targets = q.shape[0], t.shape[0]
+        per = n_problems // n_targets
+        prep = tk.prepare_targets(t, tm)
+        ref = tk.prepare_targets_reference(t, tm)
+        assert _bit_equal([prep.packed, prep.group_box, prep.tile_box],
+                          [ref.packed, ref.group_box, ref.tile_box]), name
+        got = tk.nn_1_pruned_batched(q, qm, prep, md)
+        twin = tk.nn_1_pruned_batched_reference(q, qm, t, tm, md)
+        assert _bit_equal(got, twin), name
+        for b in range(n_targets):
+            one = tk.prepare_target(t[b], tm[b])
+            assert _bit_equal([one.packed, one.group_box, one.tile_box],
+                              [prep.packed[b], prep.group_box[b], prep.tile_box[b]]), name
+        for k in range(n_problems):
+            single = tk.nn_1_pruned(q[k], qm[k], prepared=tk.prepare_target(
+                t[k // per], tm[k // per]), max_distance=md)
+            assert _bit_equal([got[0][k], got[1][k]], single), (name, k)
+        torch.cuda.synchronize()
+    with pytest.raises(ValueError):
+        tk.nn_1_pruned_batched(q[:2], qm[:2], tk.prepare_targets(t.repeat(3, 1, 1),
+                                                                  tm.repeat(3, 1)))
+
+
 @pytest.mark.cuda
 def test_nn_variant(dev):
     args = _sorted_scene(dev)

@@ -345,6 +345,11 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import pctpu_torch, pctpu_torch.ops.cuda_knn\n"
         "import pctpu_torch.cli.batch_top_part_registration\n"
+        "import pctpu_torch.cli.batch_whole_registration, pctpu_torch.pipelines.registration\n"
+        "import pctpu_torch.cloud, pctpu_torch.ops.icp, pctpu_torch.ops.knn\n"
+        "import pctpu_torch.ops.normals2d, pctpu_torch.ops.voxel, pctpu_torch.ops.topflatten\n"
+        "import pctpu_torch.ops.transform, pctpu_torch.experiments.registration_ab\n"
+        "import pctpu_torch.experiments.icp_ops\n"
         "import pctpu_torch.pipelines.multi_bev, pctpu_torch.cli.batch_multi_bev_gen\n"
         "import pctpu_torch.experiments.scene, pctpu_torch.experiments.bev_ab\n"
         "import pctpu_torch.experiments.segment_sums_probe\n"

@@ -138,7 +138,15 @@ def test_cli_resume_and_unported_flags(tree, monkeypatch):
     before = open(report).read()
     again = _run_port(monkeypatch, argv + ["--resume"], cfg)
     assert again == [] and open(report).read() == before
-    for flag in ("--pair-batch=4", "--devices=2", "--num-processes=2"):
+    # --pair-batch=4 runs (all four pairs as one batch) and classifies every
+    # pair as the sequential run does
+    batched_report = str(root / "batched_report.txt")
+    batched = _run_port(monkeypatch, [match, clouds, f"--report={batched_report}",
+                                      "--capacity=1024", "--flat-cap=1024", "--device=cpu",
+                                      "--pair-batch=4"], cfg)
+    assert [r.success for r in batched] == [r.success for r in first]
+    assert len(open(batched_report).read().splitlines()) == sum(r.success for r in first)
+    for flag in ("--devices=2", "--num-processes=2"):
         with pytest.raises(NotImplementedError):
             port_cli.main([match, clouds, flag])
 

@@ -149,12 +149,29 @@ def test_cli_resume_usage_and_unported_flags(tree, monkeypatch, capsys):
     assert (root / "resume_whole.txt.progress").read_text() == progress
     assert report.read_bytes() == b"" and "count_success: 0, count_failure: 0," in (
         capsys.readouterr().out)
+    # --pair-batch=4 runs (all four pairs as one batch) and classifies every
+    # pair as the sequential run does
+    seq_out = root / "seq_whole.txt"
+    assert port_cli.main([match, clouds, f"--report={seq_out}", "--capacity=4096",
+                          "--device=cpu"]) == 0
+    seq_log = capsys.readouterr().out
+    bat_out = root / "batched_whole.txt"
+    assert port_cli.main([match, clouds, f"--report={bat_out}", "--capacity=4096",
+                          "--device=cpu", "--pair-batch=4"]) == 0
+    bat_log = capsys.readouterr().out
+
+    def verdicts(log):
+        return [line for line in log.splitlines() if "3D ICP" in line]
+
+    assert verdicts(bat_log) == verdicts(seq_log) and len(verdicts(seq_log)) == len(PAIRS)
+    assert (root / "batched_whole.txt.progress").read_bytes() == (
+        root / "seq_whole.txt.progress").read_bytes()
     with pytest.raises(SystemExit) as exc:
         port_cli.main([match])
     assert exc.value.code == 1
     assert capsys.readouterr().out.startswith(
         "Usage: batch_whole_registration <match_result.txt> <point_cloud_dir>")
-    for flag in ("--pair-batch=4", "--devices=2", "--num-processes=2", "--process-id=1"):
+    for flag in ("--devices=2", "--num-processes=2", "--process-id=1"):
         with pytest.raises(NotImplementedError):
             port_cli.main([match, clouds, flag])
     with pytest.raises(SystemExit):
