@@ -90,9 +90,24 @@ Phases, each of which raises on failure (the exit code is then not 0):
    16, host syncs (torch's sync debug mode) per pair, per batch iteration
    of the ICP loop and by the line that made them, kernels on the card per
    pair and per problem iteration (torch.profiler), and the
-   ``BucketSpec`` hits and misses.
+   ``BucketSpec`` hits and misses;
+11. ``batch_cloud_manip`` and ``cloud_manip`` on a ray-cast HDL-64E drive (29
+   grid-ordered clouds, two raw, one over capacity): one batch of 8 through
+   the device step (ordering, ground marking, float BEV) bit-equal to the
+   CPU and its float BEVs to ``native/ref_oracle.cpp``'s
+   ``pctpu_ref_float_bev``, NaN heights card = CPU, the float BEV's ms a
+   batch beside its bytes bound and the step's ms and kernels a batch in
+   both compat modes; the CLI in both modes after a warm-up (clouds/s, its
+   ``[TIME]`` line, the CSV route, which must be the native one), the
+   host's share of a cloud stage by stage (load, results back, CSV, PNG,
+   labeled PCD), the trees byte-identical across modes, to the port's CPU
+   run on 4 clouds and, for every float BEV's CSV and PNG, to the oracle's;
+   ``ground_sums``
+   launched; then ``cloud_manip`` on one drive cloud with ``--snapshot``
+   in both views and ``--html``, every file byte-equal to the CPU run and
+   the moved cloud bit-equal (0 coordinates differ).
 
-Each of paths 5-10 runs with the launch counts set to 0 just before it and
+Each of paths 5-11 runs with the launch counts set to 0 just before it and
 read just after; a kernel of the path launched no time fails the run.
 Prints one JSON line of per-kernel results, then the final line
 ``{"ok": true, "device": {...}}``.
@@ -182,10 +197,11 @@ BEV_OUTPUTS = ("non_ground_point_cloud", "output_multi_bev", "output_single_bev"
                "keyframe_label.csv")
 
 
-def tree_files(root: str) -> dict[str, bytes]:
-    """Every output file of a batch_multi_bev_gen tree, by relative path."""
+def tree_files(root: str, outputs=BEV_OUTPUTS) -> dict[str, bytes]:
+    """Every output file of a tree (by default a batch_multi_bev_gen
+    tree's), by relative path."""
     files = {}
-    for sub in BEV_OUTPUTS:
+    for sub in outputs:
         top = os.path.join(root, sub)
         walk = [(root, [], [sub])] if os.path.isfile(top) else os.walk(top)
         for dirpath, _, names in walk:
@@ -797,6 +813,242 @@ def multi_bev_phase(dev: torch.device, smi: str, n_ordered: int = 64, ptxas: dic
     ]
 
 
+def cloud_manip_phase(dev: torch.device, smi: str, n_ordered: int = 29) -> dict:
+    """Phase 11 (module docstring).  Returns the hand-kernel launch counts
+    of the batch_cloud_manip CLI's bit-exact run."""
+    from pctpu_torch.cli import batch_cloud_manip as bcm_cli
+    from pctpu_torch.cli import cloud_manip as cm_cli
+    from pctpu_torch.config import FloatBevConfig, GroundConfig
+    from pctpu_torch.experiments import oracle
+    from pctpu_torch.experiments.card import bound_ms, cuda_ms, profile_calls
+    from pctpu_torch.experiments.scene import multi_bev_tree
+    from pctpu_torch.io import csvfmt
+    from pctpu_torch.io.pcd import load_cloud_pcd, read_pcd, write_pcd
+    from pctpu_torch.io.png import encode_gray_png, write_gray_png
+    from pctpu_torch.ops import _cuda, bev
+    from pctpu_torch.ops.transform import make_rigid_transform, transform_cloud, transform_xyz
+    from pctpu_torch.pipelines import batch_cloud_manip as bcm
+    from pctpu_torch.pipelines.multi_bev import _to_device
+    from pctpu_torch.runtime.loader import load_xyzirct_arrays, stack_batch
+
+    params = bcm.HDL64E
+    base = os.path.join(ROOT, "build", "chip_smoke_cloud_manip")
+    shutil.rmtree(base, ignore_errors=True)
+    src = os.path.join(base, "tree")
+    t0 = time.perf_counter()
+    paths = multi_bev_tree(src, params, n_ordered=n_ordered, n_raw=2, n_over=1, seed=8)
+    print(f"batch_cloud_manip drive: {len(paths)} HDL-64E clouds ({n_ordered} grid-ordered, "
+          f"2 raw, 1 over capacity) generated in {time.perf_counter() - t0:.1f} s")
+
+    # --- 11a. one batch of 8 on the card against the CPU and the oracle ----
+    cpu = torch.device("cpu")
+    picked = paths[-8:]  # the raw and over-capacity clouds among them
+    arrays = stack_batch([load_xyzirct_arrays(p, params.grid_size) for p in picked])
+    clouds = _to_device(arrays, dev)
+    ground_cfg, bev_cfg = GroundConfig(), FloatBevConfig(filter_ground=True)
+
+    def step(compat="bitexact"):
+        return bcm.process_batch(clouds, params, ground_cfg, bev_cfg, compat=compat)
+
+    labeled, bevs = step()
+    want_labeled, want_bevs = bcm.process_batch(_to_device(arrays, cpu), params, ground_cfg,
+                                                bev_cfg)
+    for field in ("xyz", "intensity", "row", "col", "t", "label"):
+        compare(f"ordered + labeled batch of 8 ({field}), card against CPU",
+                [getattr(labeled, field).cpu()], [getattr(want_labeled, field)])
+    compare("float BEV (B = 8), card against CPU", [bevs.cpu()], [want_bevs])
+    lib = oracle.load()
+    host_xyz, host_label = labeled.xyz.cpu().numpy(), labeled.label.cpu().numpy()
+    oracle_cells = sum(int((bevs[b].cpu().numpy().view(np.uint32) != oracle.float_bev(
+        lib, host_xyz[b], host_label[b], True).view(np.uint32)).sum()) for b in range(8))
+    print(f"  float BEV (B = 8) against native/ref_oracle.cpp's pctpu_ref_float_bev: "
+          f"{oracle_cells} cells differ")
+    if oracle_cells:
+        raise AssertionError("float BEV differs from the native oracle")
+    # NaN heights on in-range non-ground points: one NaN, a sign-set NaN, and
+    # three NaNs in one cell, each beside finite heights of its cell
+    dirty = labeled.xyz.clone()
+    keep = (labeled.label != 0) & (dirty[..., :2].abs() < 90).all(-1)
+    rows = torch.nonzero(keep[0]).flatten()[:5]
+    dirty[0, rows, 2] = float("nan")
+    dirty[0, rows[1], 2] = -float("nan")
+    dirty[0, rows[2:], :2] = dirty[0, rows[2], :2]
+    nan_cloud = labeled.replace(xyz=dirty)
+    nan_bev = bev.float_bev(nan_cloud, bev_cfg)
+    compare("float BEV with NaN heights, card against CPU", [nan_bev.cpu()],
+            [bev.float_bev(nan_cloud.replace(xyz=dirty.cpu(), label=labeled.label.cpu(),
+                                             count=labeled.count.cpu()), bev_cfg)])
+    print(f"  float BEV NaN cells: {int(torch.isnan(nan_bev).sum())} (card = CPU, bit for bit)")
+
+    fb_ms = cuda_ms(lambda: bev.float_bev(labeled, bev_cfg), reps=50)
+    fb_kernels, fb_copies, fb_by = profile_calls(lambda: bev.float_bev(labeled, bev_cfg))
+    # xyz and label (16 B a point) read once, the images (4 B a cell) written
+    fb_bound = bound_ms(labeled.label.numel() * 16 + bevs.numel() * 4, 0)
+    step_ms = {c: cuda_ms(lambda c=c: step(c), reps=10) for c in ("bitexact", "tolerance")}
+    step_prof = {c: profile_calls(lambda c=c: step(c), reps=3) for c in ("bitexact", "tolerance")}
+    print(f"  float_bev B = 8: {fb_ms:.4f} ms (CUDA events), bound {fb_bound[0]:.6f} ms "
+          f"({fb_bound[1]}), reached {fb_bound[0] / fb_ms:.4f}; {fb_kernels} kernels + "
+          f"{fb_copies} copies/memsets a call; device ms (torch.profiler) "
+          f"{ {k: round(v, 6) for k, v in fb_by.items()} }; card {smi}")
+    for c in step_ms:
+        print(f"  batch_cloud_manip device step B = 8 ({c}): {step_ms[c]:.4f} ms (CUDA events), "
+              f"{step_prof[c][0]} kernels + {step_prof[c][1]} copies/memsets a batch; card {smi}")
+
+    # --- 11b. the CLI in both modes, after a warm-up -----------------------
+    warm = os.path.join(base, "warm")
+    os.makedirs(os.path.join(warm, "keyframe_point_cloud"))
+    for p in paths[-9:]:
+        shutil.copy(p, os.path.join(warm, "keyframe_point_cloud"))
+    for compat in ("bitexact", "tolerance"):
+        with contextlib.redirect_stdout(io.StringIO()):
+            bcm_cli.main([warm, f"--compat={compat}", f"--device={dev.type}"])
+    route = csvfmt.csv_route(bevs[0].cpu().numpy())
+    if route != "native":
+        raise AssertionError(f"batch_cloud_manip writes its CSVs by the {route} route")
+    trees, bcm_launches = {}, {}
+    for compat in ("bitexact", "tolerance"):
+        captured = io.StringIO()
+        _cuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(captured):
+            rc = bcm_cli.main([src, f"--compat={compat}", f"--device={dev.type}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_cuda.launch_counts)
+        if rc != 0:
+            raise AssertionError(f"batch_cloud_manip --compat={compat} exited {rc}")
+        if compat == "bitexact":
+            require_launched(launches, ("ground_sums",), "batch_cloud_manip --compat=bitexact")
+            bcm_launches = launches
+        log = captured.getvalue()
+        timed = [line for line in log.splitlines() if line.startswith("[TIME]")]
+        if len(timed) != 1 or "Done. " not in log:
+            raise AssertionError(f"batch_cloud_manip --compat={compat}: log lines missing")
+        print(f"batch_cloud_manip --compat={compat}: {len(paths)} clouds in {wall:.3f} s = "
+              f"{len(paths) / wall:.4f} clouds/s; {timed[0]} (ms a cloud); CSV route {route}; "
+              f"hand-kernel launches {launches} ({-(-len(paths) // 8)} batches); card {smi}")
+        trees[compat] = os.path.join(base, compat)
+        os.makedirs(trees[compat])
+        for sub in ("non_ground_point_cloud", "output_bvm"):
+            os.rename(os.path.join(src, sub), os.path.join(trees[compat], sub))
+
+    def files(root: str) -> dict[str, bytes]:
+        return tree_files(root, ("non_ground_point_cloud", "output_bvm"))
+
+    exact, tol = files(trees["bitexact"]), files(trees["tolerance"])
+    if len(exact) != 3 * len(paths):
+        raise AssertionError(f"bit-exact tree holds {len(exact)} files")
+    differ = sorted(k for k in exact if exact[k] != tol.get(k)) + sorted(set(tol) - set(exact))
+    if differ:
+        raise AssertionError(f"tolerance tree differs from the bit-exact tree in {differ[:5]}")
+    print(f"batch_cloud_manip: tolerance tree byte-identical to the bit-exact tree "
+          f"({len(exact)} files)")
+
+    # the host's share of [TIME], stage by stage on the batch of 11a
+    split = os.path.join(base, "split")
+    os.makedirs(split)
+    t0 = time.perf_counter()
+    for p in picked:
+        load_xyzirct_arrays(p, params.grid_size)
+    load_ms = (time.perf_counter() - t0) * 1e3 / 8
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fields = {f: getattr(labeled, f).cpu().numpy()
+              for f in ("xyz", "intensity", "row", "col", "t", "label")}
+    bevs_h = bevs.cpu().numpy()
+    back_ms = (time.perf_counter() - t0) * 1e3
+    stage_ms = {"CSV": 0.0, "PNG": 0.0, "labeled PCD": 0.0}
+    for b in range(8):
+        t0 = time.perf_counter()
+        csvfmt.write_csv(os.path.join(split, f"{b}.csv"), bevs_h[b])
+        t1 = time.perf_counter()
+        write_gray_png(os.path.join(split, f"{b}.png"), bevs_h[b])
+        t2 = time.perf_counter()
+        write_pcd(os.path.join(split, f"{b}.pcd"), {
+            "x": fields["xyz"][b, :, 0], "y": fields["xyz"][b, :, 1],
+            "z": fields["xyz"][b, :, 2], "intensity": fields["intensity"][b],
+            "row": fields["row"][b].astype(np.uint16), "col": fields["col"][b].astype(np.uint16),
+            "t": fields["t"][b].astype(np.uint32), "label": fields["label"][b].astype(np.int16)})
+        t3 = time.perf_counter()
+        for k, dt in zip(stage_ms, (t1 - t0, t2 - t1, t3 - t2)):
+            stage_ms[k] += dt * 1e3 / 8
+    print(f"  host split a cloud (B = 8, this host): load {load_ms:.4f} ms (the producer "
+          f"thread's, outside [TIME]); results back {back_ms / 8:.4f} ms ({back_ms:.4f} a "
+          f"batch); " + ", ".join(f"{k} {v:.4f} ms" for k, v in stage_ms.items())
+          + f"; card {smi}")
+
+    # --- 11c. the card's tree against the port's CPU run on 4 clouds -------
+    sub = os.path.join(base, "cpu")
+    os.makedirs(os.path.join(sub, "keyframe_point_cloud"))
+    for p in (paths[0], paths[n_ordered], paths[n_ordered + 1], paths[-1]):
+        shutil.copy(p, os.path.join(sub, "keyframe_point_cloud"))
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        bcm.run_batch_cloud_manip(sub, batch_size=4, device="cpu")
+    on_cpu = files(sub)
+    differ = sorted(k for k in on_cpu if on_cpu[k] != exact.get(k))
+    if differ or len(on_cpu) != 12:
+        raise AssertionError(f"batch_cloud_manip: CPU run differs from the card's tree in "
+                             f"{differ[:5]}")
+    print(f"batch_cloud_manip: card tree byte-identical to the CPU run on 4 clouds "
+          f"({len(on_cpu)} files, CPU {time.perf_counter() - t0:.1f} s)")
+
+    # --- 11d. every written float BEV against the native oracle ------------
+    bad = 0
+    for p in paths:
+        short = os.path.basename(p)[:-4]
+        data, _ = read_pcd(os.path.join(trees["bitexact"], "non_ground_point_cloud",
+                                        short + ".pcd"))
+        want = oracle.float_bev(lib, np.stack([data["x"], data["y"], data["z"]], 1),
+                                data["label"].astype(np.int32), True)
+        bad += exact[f"output_bvm/{short}.csv"] != csvfmt.format_csv_bytes(want)
+        bad += exact[f"output_bvm/{short}.png"] != encode_gray_png(want)
+    print(f"batch_cloud_manip: {len(paths)} float BEVs against the native oracle (CSV and PNG "
+          f"bytes): {bad} files differ")
+    if bad:
+        raise AssertionError("batch_cloud_manip: float BEV files differ from the oracle's")
+
+    # --- 11e. cloud_manip on one drive cloud --------------------------------
+    pcd, args = paths[n_ordered], ["1.5", "-2.0", "0.25", "30.0"]
+    outs = {}
+    for kind in ("cuda", "cpu"):
+        d = os.path.join(base, f"cloud_manip_{kind}")
+        os.makedirs(d)
+        t0 = time.perf_counter()
+        for view in ("top", "front"):
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cm_cli.main([pcd, *args, f"--output_dir={d}",
+                                  f"--snapshot={os.path.join(d, view + '.png')}",
+                                  f"--snapshot-view={view}",
+                                  f"--html={os.path.join(d, 'scene.html')}",
+                                  f"--device={dev.type if kind == 'cuda' else 'cpu'}"])
+            if rc != 0:
+                raise AssertionError(f"cloud_manip on the {kind} exited {rc}")
+        outs[kind] = ({n: open(os.path.join(d, n), "rb").read() for n in os.listdir(d)},
+                      time.perf_counter() - t0)
+    names = sorted(outs["cuda"][0])
+    if len(names) != 9 or outs["cuda"][0] != outs["cpu"][0]:
+        raise AssertionError(f"cloud_manip: card files differ from the CPU run's in "
+                             f"{[n for n in names if outs['cuda'][0][n] != outs['cpu'][0].get(n)]}")
+    matrix = make_rigid_transform(1.5, -2.0, 0.25, 30.0 / 180.0 * math.pi)
+    on_card, on_host = load_cloud_pcd(pcd, device=dev), load_cloud_pcd(pcd, device="cpu")
+    moved = transform_cloud(on_card, matrix).xyz.cpu()
+    moved_cpu = transform_cloud(on_host, matrix).xyz
+    n_bad = int((moved.view(torch.int32) != moved_cpu.view(torch.int32)).sum())
+    cublas_bad = int((transform_xyz(on_card.xyz, matrix.to(dev)).cpu().view(torch.int32)
+                      != transform_xyz(on_host.xyz, matrix).view(torch.int32)).sum())
+    print(f"cloud_manip ({on_host.count} points, both views, HTML): {len(names)} files "
+          f"byte-equal to the CPU run ({names}); card {outs['cuda'][1]:.3f} s, CPU "
+          f"{outs['cpu'][1]:.3f} s for the two runs; transform_cloud card against CPU: "
+          f"{n_bad} of {moved.numel()} coordinates differ (transform_xyz, the registration's "
+          f"cuBLAS product: {cublas_bad}); card {smi}")
+    if n_bad:
+        raise AssertionError("cloud_manip: the moved cloud differs between card and CPU")
+    shutil.rmtree(base)
+    return bcm_launches
+
+
 def run_logged(fn, *args):
     """``fn(*args)`` with its standard output captured: (result, log)."""
     captured = io.StringIO()
@@ -1334,6 +1586,9 @@ def main() -> int:
 
     # --- 10. pair-batched registration ---------------------------------------
     batched_launches = pair_batched_phase(dev, smi)
+
+    # --- 11. batch_cloud_manip and cloud_manip -------------------------------
+    cloud_manip_phase(dev, smi)
 
     # K1, the prep and K4's <128, 1024, prod> on the fine pass at thr 1 m
     fine = nn_ms["fine thr 1 m"]

@@ -54,3 +54,17 @@ def int_kw(kw: dict[str, str], key: str, default: int | None) -> int | None:
     except ValueError:
         usage_exit(f"--{key.replace('_', '-')} requires an integer value "
                    f"(got {val!r}); use --{key.replace('_', '-')}=N")
+
+
+def path_kw(kw: dict[str, str], key: str, default: str | None = None) -> str | None:
+    """Parse a path-valued --key=PATH flag; a bare flag returns ``default``
+    (or errors when no default makes sense)."""
+    if key not in kw:
+        return None
+    val = kw[key]
+    if val in ("", "true"):
+        if default is not None:
+            return default
+        usage_exit(f"--{key.replace('_', '-')} requires a value: "
+                   f"--{key.replace('_', '-')}=PATH")
+    return val

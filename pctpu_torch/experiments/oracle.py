@@ -1,6 +1,7 @@
 """The reference's BEV chain as an independent native oracle, for checks on
 the card: ``native/ref_oracle.cpp``'s ``pctpu_ref_preprocess`` (ordering,
-ground marking with the C++'s f64 slope, both BEV rasters), built with
+ground marking with the C++'s f64 slope, both BEV rasters) and
+``pctpu_ref_float_bev`` (saveAsMat's 201² float BEV), built with
 ``g++ -O2 -std=c++14 -ffp-contract=off`` into ``build/pctpu_torch/`` and
 bound with ctypes; and the D2 analysis that attributes a difference from it
 to the slope test's f32/f64 knife edge."""
@@ -40,6 +41,8 @@ def load() -> ctypes.CDLL:
     lib.pctpu_ref_preprocess.argtypes = [p, p, p, p, p, ctypes.c_int64, i32, i32, i32,
                                          ctypes.c_float, p, p, p, p]
     lib.pctpu_ref_preprocess.restype = ctypes.c_int
+    lib.pctpu_ref_float_bev.argtypes = [p, p, ctypes.c_int64, i32, p]
+    lib.pctpu_ref_float_bev.restype = ctypes.c_int
     return lib
 
 
@@ -62,6 +65,21 @@ def preprocess(lib: ctypes.CDLL, data: dict, params) -> tuple[np.ndarray, np.nda
     if rc != 0:
         raise RuntimeError(f"pctpu_ref_preprocess failed: {rc}")
     return labels, multi, single
+
+
+def float_bev(lib: ctypes.CDLL, xyz: np.ndarray, label: np.ndarray,
+              filter_ground: bool) -> np.ndarray:
+    """One cloud's saveAsMat float BEV (reference/BatchCloudManip.cpp:201-239)
+    by the oracle: (201, 201) f32, max of z + 2 from 0, ground skipped with
+    ``filter_ground``.  Its ``v > out`` never stores a NaN."""
+    xyz = np.ascontiguousarray(xyz, np.float32).reshape(-1, 3)
+    label = np.ascontiguousarray(label, np.int32)
+    out = np.empty(201 * 201, np.float32)
+    rc = lib.pctpu_ref_float_bev(xyz.ctypes.data, label.ctypes.data, len(xyz),
+                                 1 if filter_ground else 0, out.ctypes.data)
+    if rc != 0:
+        raise RuntimeError(f"pctpu_ref_float_bev failed: {rc}")
+    return out.reshape(201, 201)
 
 
 def slope_disagreements(xyz: torch.Tensor, intensity: torch.Tensor, params,

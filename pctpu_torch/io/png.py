@@ -1,11 +1,16 @@
-"""Minimal dependency-free PNG writer for 8-bit grayscale BEV images (the
-port of ``pctpu/io/png.py``'s uint8 path, numpy + zlib, byte-identical).
+"""Minimal dependency-free PNG writer for 8-bit grayscale BEV images and RGB
+viewer snapshots (the port of ``pctpu/io/png.py``, numpy + zlib,
+byte-identical).
 
 The reference writes BEV layers with ``cv::imwrite`` (e.g.
 reference/BatchMultiBevGen.cpp:318).  PNG bytes differ between encoders
 (compression strategy), but the decoded pixels are what downstream consumers
-read, and those are bit-identical.  The encoder writes the level-1 form of
-``native/pctpu_io.cpp``, so it is the native writer's fallback byte for byte.
+read, and those are bit-identical.  Level 1 is the RLE form of
+``native/pctpu_io.cpp``, so it is the native writer's fallback byte for
+byte; any other level is ``zlib.compress(raw, level)`` (pctpu's default of
+6 writes the float BEVs).  Float matrices are first converted with OpenCV's
+documented CV_32F→CV_8U fallback (saturate_cast), matching the reference's
+imwrite of CV_32F BEVs (reference/BatchCloudManip.cpp:238).
 """
 
 from __future__ import annotations
@@ -14,6 +19,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from pctpu_torch.ops.rounding import cv_saturate_u8
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
@@ -112,28 +119,58 @@ def _chunk(tag: bytes, payload: bytes) -> bytes:
     )
 
 
-def encode_gray_png(img: np.ndarray) -> bytes:
-    """Encode a 2-D uint8 array as an 8-bit grayscale PNG."""
+def _compress_idat(raw: bytes, level: int) -> bytes:
+    if level == 1:
+        return _deflate_rle_fixed(raw)
+    return zlib.compress(raw, level)
+
+
+def encode_gray_png(img: np.ndarray, compress_level: int = 6) -> bytes:
+    """Encode a 2-D array as an 8-bit grayscale PNG.
+
+    Non-uint8 inputs are converted with OpenCV saturate_cast semantics."""
     img = np.asarray(img)
-    if img.ndim != 2 or img.dtype != np.uint8:
-        raise ValueError(f"expected a 2-D uint8 image, got {img.dtype} {img.shape}")
+    if img.ndim != 2:
+        raise ValueError(f"expected 2-D image, got shape {img.shape}")
+    if img.dtype != np.uint8:
+        img = cv_saturate_u8(img)
     h, w = img.shape
     ihdr = struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0)  # 8-bit grayscale
     raw = np.empty((h, w + 1), np.uint8)
     raw[:, 0] = 0  # filter type 0 (None) per scanline
     raw[:, 1:] = img
-    idat = _deflate_rle_fixed(raw.tobytes())
+    idat = _compress_idat(raw.tobytes(), compress_level)
     return _PNG_SIGNATURE + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", idat) + _chunk(b"IEND", b"")
 
 
-def write_gray_png(path: str, img: np.ndarray) -> None:
+def write_gray_png(path: str, img: np.ndarray, compress_level: int = 6) -> None:
     with open(path, "wb") as f:
-        f.write(encode_gray_png(img))
+        f.write(encode_gray_png(img, compress_level))
 
 
-def decode_gray_png(data: bytes) -> np.ndarray:
-    """Decode an 8-bit grayscale PNG with filter-0 scanlines, as
-    :func:`encode_gray_png` and the native writer produce them."""
+def encode_rgb_png(img: np.ndarray, compress_level: int = 6) -> bytes:
+    """Encode an (H, W, 3) uint8 array as a truecolor PNG (color type 2),
+    for the headless viewer snapshots (``pctpu_torch.ops.render``)."""
+    img = np.ascontiguousarray(img)
+    if img.ndim != 3 or img.shape[2] != 3 or img.dtype != np.uint8:
+        raise ValueError(f"expected (H, W, 3) uint8, got {img.shape} {img.dtype}")
+    h, w = img.shape[:2]
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)  # 8-bit truecolor
+    raw = np.empty((h, 1 + w * 3), np.uint8)
+    raw[:, 0] = 0  # filter type 0 (None) per scanline
+    raw[:, 1:] = img.reshape(h, w * 3)
+    idat = _compress_idat(raw.tobytes(), compress_level)
+    return _PNG_SIGNATURE + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", idat) + _chunk(b"IEND", b"")
+
+
+def write_rgb_png(path: str, img: np.ndarray, compress_level: int = 6) -> None:
+    with open(path, "wb") as f:
+        f.write(encode_rgb_png(img, compress_level))
+
+
+def _decode_filter0_png(data: bytes, color_type: int, channels: int) -> np.ndarray:
+    """Decode an 8-bit PNG of one color type with filter-0 scanlines, as the
+    encoders here and the native writer produce them."""
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError("not a PNG")
     pos = 8
@@ -145,15 +182,28 @@ def decode_gray_png(data: bytes) -> np.ndarray:
         payload = data[pos + 8 : pos + 8 + length]
         if tag == b"IHDR":
             w, h, depth, color = struct.unpack(">IIBB", payload[:10])
-            if depth != 8 or color != 0:
-                raise ValueError("only 8-bit grayscale PNGs supported")
+            if depth != 8 or color != color_type:
+                raise ValueError(f"only 8-bit color type {color_type} supported")
         elif tag == b"IDAT":
             idat += payload
         pos += 12 + length
-    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w)
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * channels)
     if np.any(raw[:, 0] != 0):
         raise ValueError("only filter-0 scanlines supported")
-    return raw[:, 1:].copy()
+    out = raw[:, 1:]
+    if channels == 1:
+        return out.copy()
+    return out.reshape(h, w, channels).copy()
+
+
+def decode_gray_png(data: bytes) -> np.ndarray:
+    """Decode an 8-bit grayscale PNG with filter-0 scanlines."""
+    return _decode_filter0_png(data, color_type=0, channels=1)
+
+
+def decode_rgb_png(data: bytes) -> np.ndarray:
+    """Decode a truecolor PNG produced by :func:`encode_rgb_png`."""
+    return _decode_filter0_png(data, color_type=2, channels=3)
 
 
 def read_gray_png(path: str) -> np.ndarray:

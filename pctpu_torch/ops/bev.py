@@ -1,5 +1,5 @@
-"""BEV rasters: multi-layer occupancy and uint8 height (the port of
-``pctpu/ops/bev.py``; ``float_bev`` comes with ``cloud_manip``).
+"""BEV rasters: multi-layer occupancy, uint8 height and float max-height (the
+port of ``pctpu/ops/bev.py``).
 
 Reference semantics (reference/BatchMultiBevGen.cpp:261-373):
   * multi-layer: 24 layers of 224×224 uint8; x = round((px+112)/res + 0.5);
@@ -7,10 +7,15 @@ Reference semantics (reference/BatchMultiBevGen.cpp:261-373):
     skipped; occupied = 255.
   * single-layer: per-cell max of clamp(int((z+2)*4), 0, 255), ground
     skipped.
+  * float BEV (reference/BatchCloudManip.cpp:201-239, CloudManip.cpp:79-109):
+    201×201 float max of z+2 (init 0); ground skipped only in the batch
+    variant.
 
-``multi_bev`` and ``single_bev`` are ``scatter_reduce(amax)`` torch ops: max
-does not depend on the order of the updates, so they are deterministic on
-any device.  ``fused_multi_single_bev`` computes both in one pass; on CUDA it
+``multi_bev``, ``single_bev`` and ``float_bev`` are ``scatter_reduce(amax)``
+torch ops: max does not depend on the order of the updates, so they are
+deterministic on any device (for ``float_bev`` a NaN height carries into its
+cell with the bits pctpu's CPU gives it, ``rounding.x86_nan``; only which of
+several differently signed NaNs a cell keeps may differ, README D21).  ``fused_multi_single_bev`` computes both in one pass; on CUDA it
 is the hand-written kernel ``csrc/bev_raster.cu`` (pctpu's counterpart is a
 TPU-shaped double sort with a Hillis-Steele OR scan): one memset and two
 kernels a call.  The two torch ops are its plain twin, and
@@ -23,9 +28,9 @@ from __future__ import annotations
 import torch
 
 from pctpu_torch.cloud import Cloud
-from pctpu_torch.config import MultiBevConfig, SingleBevConfig
+from pctpu_torch.config import FloatBevConfig, MultiBevConfig, SingleBevConfig
 from pctpu_torch.ops import _cuda
-from pctpu_torch.ops.rounding import bev_cell, c_round, to_i32
+from pctpu_torch.ops.rounding import bev_cell, c_round, to_i32, x86_nan
 
 
 def _layer(z: torch.Tensor, height_res: float, cfg: MultiBevConfig) -> torch.Tensor:
@@ -77,6 +82,25 @@ def single_bev(cloud: Cloud, cfg: SingleBevConfig = SingleBevConfig()) -> torch.
     img = torch.zeros((xyz.shape[0], s * s + 1), dtype=torch.int32, device=xyz.device)
     img = img.scatter_reduce(1, flat, torch.where(ok, height, 0), "amax")
     return out(img[:, :-1].to(torch.uint8).reshape(-1, s, s))
+
+
+def float_bev(cloud: Cloud, cfg: FloatBevConfig = FloatBevConfig()) -> torch.Tensor:
+    """(…, mat, mat) float32 max(z + 2) BEV (zero-initialised): one
+    ``scatter_reduce_`` for the whole batch, cloud b's cells offset by
+    b·(S² + 1), the last cell of each taking the points that fall outside."""
+    xyz, label, valid, out = _batched(cloud)
+    b, s = xyz.shape[0], cfg.mat_size
+    cx = bev_cell(xyz[..., 0], cfg.max_range, cfg.interval).long()
+    cy = bev_cell(xyz[..., 1], cfg.max_range, cfg.interval).long()
+    ok = (cx >= 0) & (cx < s) & (cy >= 0) & (cy < s) & valid
+    if cfg.filter_ground:
+        ok &= label != 0
+    val = x86_nan(xyz[..., 2] + cfg.lidar_to_ground_height, xyz[..., 2])
+    base = torch.arange(b, device=xyz.device)[:, None] * (s * s + 1)
+    flat = torch.where(ok, cx * s + cy, s * s) + base
+    img = torch.zeros(b * (s * s + 1), dtype=torch.float32, device=xyz.device)
+    img.scatter_reduce_(0, flat.reshape(-1), torch.where(ok, val, 0.0).reshape(-1), "amax")
+    return out(img.view(b, s * s + 1)[:, :-1].reshape(b, s, s))
 
 
 def fused_bev_compatible(multi_cfg: MultiBevConfig, single_cfg: SingleBevConfig) -> bool:

@@ -1,5 +1,6 @@
 """Fused per-cloud preprocessing: ordering + ground marking + BEV rasters (the
-port of ``pctpu/ops/preprocess.py``).
+port of ``pctpu/ops/preprocess.py``), and the ordering + ground marking step
+alone, which batch_cloud_manip runs before its float BEV.
 
 This is the hot loop of the flagship pipeline
 (reference/BatchMultiBevGen.cpp:727-757).  ``preprocess_batch`` keeps the
@@ -23,6 +24,25 @@ from pctpu_torch.ops.ground import mark_ground
 from pctpu_torch.ops.ordering import get_ordered_cloud
 
 
+def order_and_mark_ground(
+    clouds: Cloud,
+    params: SensorParams,
+    ground_cfg: GroundConfig = GroundConfig(),
+    assume_ordered: bool = False,
+    compat: str = "bitexact",
+) -> Cloud:
+    """Clouds (every field with a leading batch axis, or one cloud) → the
+    labeled ordered clouds: ``getOrderedCloud`` then the ground marking, the
+    device step that batch_multi_bev_gen and batch_cloud_manip share.
+    ``assume_ordered`` as in :func:`preprocess_batch`."""
+    if assume_ordered:
+        ordered = _reorder_preordered(clouds, params)
+    else:
+        ordered = get_ordered_cloud(clouds, params)
+    labeled, _ = mark_ground(ordered, params, ground_cfg, compat=compat)
+    return labeled
+
+
 def preprocess_batch(
     clouds: Cloud,
     params: SensorParams,
@@ -41,11 +61,7 @@ def preprocess_batch(
     (reference/KittiPointCloudSelect.cpp:240), so re-running
     ``getOrderedCloud`` is the identity except at slot 0.  The caller must
     have verified the layout host-side (``ordering.arrays_grid_ordered``)."""
-    if assume_ordered:
-        ordered = _reorder_preordered(clouds, params)
-    else:
-        ordered = get_ordered_cloud(clouds, params)
-    labeled, _ = mark_ground(ordered, params, ground_cfg, compat=compat)
+    labeled = order_and_mark_ground(clouds, params, ground_cfg, assume_ordered, compat)
     if fused_bev_compatible(multi_cfg, single_cfg):
         multi_img, single_img = fused_multi_single_bev(
             labeled, params.height_res, multi_cfg, single_cfg

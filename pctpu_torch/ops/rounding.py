@@ -1,5 +1,11 @@
 """C ``round()`` and the BEV cell index of f32 values, bit-exact (the port
-of ``pctpu/ops/rounding.py``).
+of ``pctpu/ops/rounding.py``), and OpenCV's ``saturate_cast<uchar>`` of a
+float image for the float BEV PNGs.
+
+``x86_nan`` gives a NaN result the bits pctpu's CPU arithmetic gives it, so
+that a NaN written to a file (a PCD coordinate, a CSV ``-nan``) is the same
+from the card: the card's float units return one canonical NaN
+(0x7FFFFFFF) whatever the operands, where x86 passes the NaN operand on.
 
 ``c_round`` is half away from zero, via floor + an exact fraction compare
 (``a - floor(a)`` is exact in f32 for our magnitudes).  ``torch.round`` is
@@ -13,9 +19,28 @@ corrupt coordinate lands in the same cell on both packages and devices."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _I32_MAX_F = 2147483520.0  # the largest f32 below 2**31
+
+
+def x86_nan(result: torch.Tensor, *operands: torch.Tensor) -> torch.Tensor:
+    """``result`` (computed from ``operands`` by adds and multiplies) with
+    each NaN given the bits x86's SSE/AVX units give it: the first NaN
+    operand, quieted, or the default NaN 0xFFC00000 where the arithmetic
+    made one (inf·0, inf − inf).  The identity on an x86 CPU wherever the
+    NaN operands of an element share one bit pattern; on the card it undoes
+    the canonical NaN.  With differently signed NaN operands the first one
+    wins (README D21)."""
+    nan = torch.isnan(result)
+    # built on the device (a fill, not a copy from the host): 0xFFC00000
+    default = torch.full((), -0x400000, dtype=torch.int32, device=result.device)
+    out = torch.where(nan, default.view(torch.float32), result)
+    for op in reversed(operands):
+        quiet = (op.view(torch.int32) | 0x400000).view(torch.float32)
+        out = torch.where(nan & torch.isnan(op), quiet, out)
+    return out
 
 
 def c_round(v: torch.Tensor) -> torch.Tensor:
@@ -42,3 +67,13 @@ def bev_cell(coord: torch.Tensor, max_range: float, interval: float) -> torch.Te
     t = (coord + max_range) / interval
     return torch.where(t >= -0.5, to_i32(torch.floor(t)) + 1, to_i32(torch.ceil(t)))
 
+
+
+def cv_saturate_u8(v: np.ndarray) -> np.ndarray:
+    """OpenCV ``saturate_cast<uchar>(float)``: rint (half-to-even) + clamp,
+    as numpy computes it (a NaN stays NaN through ``rint`` and ``clip`` and
+    becomes whatever numpy's cast to uint8 makes of it).
+
+    Used when emulating cv::imwrite's CV_32F→CV_8U fallback for float BEV
+    PNGs (reference/BatchCloudManip.cpp:238 writes a CV_32F mat)."""
+    return np.clip(np.rint(np.asarray(v)), 0, 255).astype(np.uint8)

@@ -1,6 +1,8 @@
-"""ctypes binding of the native BEV artifact writer (``native/pctpu_io.cpp``'s
-``pctpu_write_cloud_artifacts``; the port of the part of
-``pctpu/runtime/native_io.py`` that batch_multi_bev_gen runs).
+"""ctypes binding of the native BEV artifact writer and float CSV formatter
+(``native/pctpu_io.cpp``'s ``pctpu_write_cloud_artifacts`` and
+``pctpu_format_csv_f32``; the port of the parts of
+``pctpu/runtime/native_io.py`` that batch_multi_bev_gen, batch_cloud_manip
+and cloud_manip run).
 
 The library is built at first use with ``g++ -O2 -shared -fPIC … -lz`` into
 ``build/pctpu_torch/`` (never into ``native/``), under a name carrying a hash
@@ -59,11 +61,17 @@ def _load() -> ctypes.CDLL | None:
                 ctypes.c_char_p, ctypes.c_char_p, i, i,
             ]
             lib.pctpu_write_cloud_artifacts.restype = i
+            lib.pctpu_format_csv_f32.argtypes = [p, i, i, i, p, ctypes.c_long]
+            lib.pctpu_format_csv_f32.restype = ctypes.c_long
             _lib = lib
         except (OSError, subprocess.SubprocessError) as exc:
             build_error = getattr(exc, "stderr", None) or str(exc)
             _lib = None
         return _lib
+
+
+def native_available() -> bool:
+    return _load() is not None
 
 
 def writer_name() -> str:
@@ -88,7 +96,7 @@ def write_cloud_artifacts(
     (reference/BatchMultiBevGen.cpp:295-320, 352-372): the layer-major
     ``.bin``, the per-layer PNGs ``<img_dir>/%02d.png``, the single-BEV PNG
     and its FMT_CSV.  ``multi`` is (L, H, W) u8 of 0/255.  PNGs take the
-    native encoder's level 1, the one form the Python fallback writes."""
+    encoder's level 1 (the RLE form), as pctpu's writer does."""
     single = np.ascontiguousarray(single, np.uint8)
     multi = np.ascontiguousarray(multi, np.uint8)
     lib = _load()
@@ -121,6 +129,24 @@ def write_cloud_artifacts_python(
     if write_pngs:
         os.makedirs(img_dir, exist_ok=True)
         for layer in range(multi.shape[0]):
-            write_gray_png(os.path.join(img_dir, f"{layer:02d}.png"), multi[layer])
-        write_gray_png(single_png_path, single)
+            write_gray_png(os.path.join(img_dir, f"{layer:02d}.png"), multi[layer], 1)
+        write_gray_png(single_png_path, single, 1)
     write_csv(single_csv_path, single)
+
+
+def format_csv_f32(mat: np.ndarray, precision: int) -> bytes | None:
+    """Native OpenCV-FMT_CSV float formatting ("%.<p>g", ", ", row "\\n").
+    Returns None when the library is unavailable (the caller falls back to
+    the byte-identical Python formatter)."""
+    lib = _load()
+    if lib is None:
+        return None
+    mat = np.ascontiguousarray(mat, np.float32)
+    h, w = mat.shape
+    # worst case per value: sign + 8 significant + dot + e+XX + sep ≈ 24
+    cap = h * w * (precision + 20) + h + 16
+    out = np.empty(cap, np.uint8)
+    n = lib.pctpu_format_csv_f32(mat.ctypes.data, h, w, precision, out.ctypes.data, cap)
+    if n < 0:
+        return None
+    return out[:n].tobytes()

@@ -39,3 +39,8 @@ class StageTimer:
             if torch.cuda.is_initialized():
                 torch.cuda.synchronize()
             self.add(name, (time.perf_counter() - start) * 1e3, items)
+
+    def report_average(self, name: str, label: str) -> str:
+        """A reference-style line, e.g.
+        ``[TIME] Average preprocessing and BEV generation: 12.3``"""
+        return f"[TIME] {label}: {self.average_ms(name)}"

@@ -417,3 +417,80 @@ def test_ground_sums(dev, tmp_path):
         scattered = torch.empty_like(values)
         scattered[perm] = values
         _hold_segment_sums(scattered, seg, init, n_out, perm)
+
+
+def _manip_cloud(seed: int, n: int, dev, nan: bool = False) -> Cloud:
+    """Points over ±115 m with cell-edge coordinates and ground labels; with
+    ``nan``, NaN heights on in-range non-ground points (one sign-set, three
+    sharing a cell)."""
+    from pctpu_torch.cloud import make_cloud
+
+    rng = np.random.default_rng(seed)
+    xyz = rng.uniform(-115, 115, (n, 3)).astype(np.float32)
+    xyz[:, 2] = rng.uniform(-4.5, 6, n)
+    xyz[: n // 5, :2] = rng.integers(-101, 101, (n // 5, 2)) - np.float32(0.5)
+    label = np.where(rng.random(n) < 0.3, 0, 1).astype(np.int32)
+    if nan:
+        pick = np.flatnonzero((np.abs(xyz[:, :2]) < 90).all(1) & (label != 0))[:5]
+        xyz[pick, 2] = np.nan
+        xyz[pick[1], 2] = -np.float32(np.nan)
+        xyz[pick[2:], :2] = xyz[pick[2], :2]
+    return make_cloud(xyz, label=label, capacity=n + 64, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nan", [False, True])
+@pytest.mark.parametrize("filter_ground", [True, False])
+def test_float_bev_card_equals_cpu(dev, nan, filter_ground):
+    """The float BEV's scatter-max on the card, single and batched, equals
+    the CPU's bit for bit (NaN heights included, one of them sign-set: a NaN
+    keeps x86's bits, not the card's canonical NaN)."""
+    from pctpu_torch.cloud import stack_clouds
+    from pctpu_torch.config import FloatBevConfig
+
+    cfg = FloatBevConfig(filter_ground=filter_ground)
+    clouds = [_manip_cloud(s, 40000, dev, nan) for s in range(3)]
+    got = bev.float_bev(stack_clouds(clouds), cfg)
+    want = bev.float_bev(stack_clouds([c.replace(**{f: getattr(c, f).cpu() for f in (
+        "xyz", "intensity", "row", "col", "t", "label")}) for c in clouds]), cfg)
+    assert _bit_equal([got.cpu()], [want])
+    assert _bit_equal([bev.float_bev(clouds[1], cfg).cpu()], [want[1]])
+    assert bool(torch.isnan(want).any()) == nan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("yaw", [0.0, 30.0, -117.3, 359.99])
+def test_transform_card_equals_cpu(dev, yaw):
+    """cloud_manip's transform (each product and sum rounded in turn) on the
+    card is bit-equal to the CPU's, NaN and infinite coordinates included
+    (a NaN keeps x86's bits, not the card's canonical NaN)."""
+    import math
+
+    from pctpu_torch.ops.transform import make_rigid_transform, transform_cloud
+
+    cloud = _manip_cloud(int(abs(yaw)) + 7, 100000, dev)
+    xyz = cloud.xyz.clone()
+    xyz[:4] = torch.tensor([[float("nan")] * 3, [float("inf"), 1.0, 2.0],
+                            [-float("inf"), float("inf"), -float("nan")],
+                            [3.0, -float("nan"), float("inf")]])
+    cloud = cloud.replace(xyz=xyz)
+    m = make_rigid_transform(1.5, -2.0, 0.25, yaw / 180.0 * math.pi)
+    got = transform_cloud(cloud, m).xyz.cpu()
+    want = transform_cloud(cloud.replace(xyz=cloud.xyz.cpu()), m).xyz
+    assert _bit_equal([got], [want])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["top", "front"])
+def test_render_snapshot_card_equals_cpu(dev, view):
+    """The snapshot's z-buffer on the card gives the CPU's image."""
+    from pctpu_torch.ops.render import Layer, render_snapshot, segment_points
+
+    rng = np.random.default_rng(3)
+    a = rng.uniform(-40, 40, (50000, 3)).astype(np.float32)
+    m = rng.random(50000) > 0.2
+    layers = [Layer(a, (255, 0, 0), mask=m), Layer(a[::3] + 0.25, (0, 255, 0)),
+              Layer(segment_points(a[:4], a[4:8]), (255, 255, 255))]
+    got = render_snapshot(layers, view=view, device=dev)
+    want = render_snapshot(layers, view=view, device="cpu")
+    assert np.array_equal(got, want) and len(np.unique(got.reshape(-1, 3), axis=0)) >= 3

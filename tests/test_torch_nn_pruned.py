@@ -308,6 +308,8 @@ _CLIS = {
     "batch_top_part_registration": ["match.txt", "clouds"],
     "batch_whole_registration": ["match.txt", "clouds"],
     "batch_multi_bev_gen": ["root", "HDL_64E"],
+    "batch_cloud_manip": ["root"],
+    "cloud_manip": ["scan.pcd", "1", "2", "0", "30"],
 }
 
 
@@ -329,7 +331,9 @@ def test_cli_needs_card_or_device_cpu(name, capsys):
 
 @pytest.mark.parametrize("entry", ["registration.run_batch_top_part_registration",
                                    "registration.run_batch_whole_registration",
-                                   "multi_bev.run_multi_bev"])
+                                   "multi_bev.run_multi_bev",
+                                   "batch_cloud_manip.run_batch_cloud_manip",
+                                   "cloud_manip.run_cloud_manip"])
 def test_entry_points_default_to_cuda(entry):
     import inspect
 
@@ -355,6 +359,10 @@ def test_port_imports_no_jax():
         "import pctpu_torch.experiments.segment_sums_probe\n"
         "import pctpu_torch.experiments.bev_raster_probe\n"
         "import pctpu_torch.experiments.nn_fused_probe\n"
+        "import pctpu_torch.pipelines.batch_cloud_manip, pctpu_torch.cli.batch_cloud_manip\n"
+        "import pctpu_torch.pipelines.cloud_manip, pctpu_torch.cli.cloud_manip\n"
+        "import pctpu_torch.ops.render, pctpu_torch.io.html_viewer, pctpu_torch.io.csvfmt\n"
+        "import pctpu_torch.io.png, pctpu_torch.experiments.oracle\n"
         "from pctpu_torch.runtime import native_io\n"
         "assert native_io._lib is None and not native_io._tried\n"
         "from pctpu_torch.ops import _cuda\n"
