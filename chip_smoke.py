@@ -105,9 +105,26 @@ Phases, each of which raises on failure (the exit code is then not 0):
    ``ground_sums``
    launched; then ``cloud_manip`` on one drive cloud with ``--snapshot``
    in both views and ``--html``, every file byte-equal to the CPU run and
-   the moved cloud bit-equal (0 coordinates differ).
+   the moved cloud bit-equal (0 coordinates differ);
+12. ``pointcloud_pca_test``, ``top_part_registration`` and the selectors:
+   ``pca_moments`` (``csrc/pca_moments.cu``) bit-equal to its twin on a
+   ray-cast HDL-64E cloud ground-marked by the port (133,312 rows, the
+   demo's filter applied), at N = 1, 31, 32, 33 and 4,097, all masked, and
+   with NaN and ±inf rows kept and masked; its ms alone and with its
+   wrapper, per-kernel profiler times, the twin, the library pair
+   ((xyz·w).sum + ``torch.matmul``) and the chain bound; the
+   ``pointcloud_pca_test`` CLI on that cloud, written as a labelled PCD,
+   on the card and on the CPU, both snapshot views and ``--html``: standard
+   output and every file byte-equal; ``top_part_registration`` on pair 0 →
+   1 of the registration tree (after a warm-up run) within 0.5° and 0.10 m
+   of the truth on the card and on the CPU, its flat cloud equal and the
+   pixels and whisker endpoints that differ printed; the KITTI (HDL-64E) and
+   MulRan (OS1-64) selectors on five-frame drives into
+   ``batch_multi_bev_gen``, the card's tree byte-equal to the CPU's, and
+   the Oxford (HDL-32E) and KITTI-raw selectors' trees listed with their
+   hashes.
 
-Each of paths 5-11 runs with the launch counts set to 0 just before it and
+Each of paths 5-12 runs with the launch counts set to 0 just before it and
 read just after; a kernel of the path launched no time fails the run.
 Prints one JSON line of per-kernel results, then the final line
 ``{"ok": true, "device": {...}}``.
@@ -165,7 +182,8 @@ def print_ptxas(path) -> dict[str, str]:
                               r"|segment_sum_walk_kernel|segment_fill_kernel"
                               r"|bev_raster_v1_kernel|bev_expand_v1_kernel"
                               r"|bev_raster_kernel|bev_expand_kernel|nn_prep_kernel"
-                              r"|nn_seed_kernel|nn_main_kernel|nn_finish_kernel)", name)
+                              r"|nn_seed_kernel|nn_main_kernel|nn_finish_kernel"
+                              r"|pca_windows_kernel|pca_moments_kernel)", name)
             counting = "ILb1E" in name
             name = (short.group(1) if short else name) + (
                 f"<{','.join(tpl)}>" if tpl else "<counting>" if counting else "")
@@ -1049,6 +1067,280 @@ def cloud_manip_phase(dev: torch.device, smi: str, n_ordered: int = 29) -> dict:
     return bcm_launches
 
 
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def pca_moments_cases(xyz: torch.Tensor, keep: torch.Tensor) -> list:
+    """Phase 12a's inputs: (name, rows, mask) — the filtered cloud, ragged
+    sizes, all masked, and NaN and ±inf rows."""
+    dev = xyz.device
+    rng = np.random.default_rng(12)
+    cases = [(f"HDL-64E cloud, filtered ({xyz.shape[0]:,} rows, {int(keep.sum()):,} kept)",
+              xyz, keep),
+             ("HDL-64E cloud, all masked", xyz, torch.zeros_like(keep))]
+    for n in (1, 31, 32, 33, 4097):
+        rows = torch.from_numpy((rng.normal(size=(n, 3)) * 20).astype(np.float32)).to(dev)
+        cases.append((f"N = {n}", rows, torch.from_numpy(rng.random(n) < 0.7).to(dev)))
+    dirty = xyz[:20000].clone()
+    dirty[5, 0], dirty[9, 1] = float("nan"), float("inf")
+    dirty[11, 0], dirty[19990] = -float("inf"), float("nan")
+    for name, m in (("NaN and ±inf rows, kept", torch.ones_like(keep[:20000])),
+                    ("NaN and ±inf rows, masked", torch.zeros_like(keep[:20000]))):
+        cases.append((name, dirty, m))
+    return cases
+
+
+def pca_phase(dev: torch.device, smi: str, clock_mhz: float) -> dict:
+    """Phase 12 (module docstring).  Returns the ``kernels`` entry of
+    ``pca_moments``."""
+    from pctpu_torch.cli import batch_multi_bev_gen as bev_cli
+    from pctpu_torch.cli import kitti_point_cloud_select as kitti_cli
+    from pctpu_torch.cli import kitti_raw_point_cloud_select as kitti_raw_cli
+    from pctpu_torch.cli import mulran_point_cloud_select as mulran_cli
+    from pctpu_torch.cli import oxford_point_cloud_select as oxford_cli
+    from pctpu_torch.cli import pointcloud_pca_test as pca_cli
+    from pctpu_torch.cli import top_part_registration as tp_cli
+    from pctpu_torch.config import GroundConfig
+    from pctpu_torch.experiments import scene
+    from pctpu_torch.experiments.card import cuda_ms, pca_moments_bound, profile_calls
+    from pctpu_torch.io.html_viewer import read_back_layers
+    from pctpu_torch.io.pcd import load_cloud_pcd, write_pcd
+    from pctpu_torch.io.png import decode_rgb_png
+    from pctpu_torch.ops import _cuda, pca
+    from pctpu_torch.ops.preprocess import order_and_mark_ground
+    from pctpu_torch.pipelines.batch_cloud_manip import HDL64E
+    from pctpu_torch.pipelines.multi_bev import _to_device
+    from pctpu_torch.runtime.loader import load_xyzirct_arrays, stack_batch
+
+    t_phase = time.perf_counter()
+    base = os.path.join(ROOT, "build", "chip_smoke_pca")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+
+    # --- 12a. pca_moments against its twin ----------------------------------
+    # one HDL-64E cloud of the ray-cast drive, ground-marked by the port;
+    # the demo keeps label > 0, so non-ground points take label 1
+    raw = scene.multi_bev_tree(os.path.join(base, "drive"), HDL64E, n_ordered=1, n_raw=0,
+                               n_over=0, seed=12)[0]
+    labeled = order_and_mark_ground(
+        _to_device(stack_batch([load_xyzirct_arrays(raw, HDL64E.grid_size)]), dev),
+        HDL64E, GroundConfig())
+    f = {k: getattr(labeled, k)[0].cpu().numpy() for k in ("xyz", "intensity", "row", "col",
+                                                            "t", "label")}
+    pcd = os.path.join(base, "labeled.pcd")
+    write_pcd(pcd, {"x": f["xyz"][:, 0], "y": f["xyz"][:, 1], "z": f["xyz"][:, 2],
+                    "intensity": f["intensity"], "row": f["row"].astype(np.uint16),
+                    "col": f["col"].astype(np.uint16), "t": f["t"].astype(np.uint32),
+                    "label": np.where(f["label"] == -2, 1, f["label"]).astype(np.int16)})
+    cloud = load_cloud_pcd(pcd, device=dev)
+    xyz, keep = pca.pca_test_filter(cloud)
+    print(f"pointcloud_pca_test cloud: {cloud.count:,} points, {int((f['label'] == 0).sum()):,} "
+          f"ground, {int(keep.sum()):,} kept by the filter")
+    err = 0.0
+    for name, rows, m in pca_moments_cases(xyz, keep):
+        t0 = time.perf_counter()
+        want = pca.pca_moments_reference(rows, m)
+        torch.cuda.synchronize()
+        twin_s = time.perf_counter() - t0
+        err = max(err, compare(f"pca_moments {name}, kernel against twin",
+                               pca.pca_moments(rows, m), want))
+        if name.startswith("HDL-64E cloud, filtered"):
+            twin_ms = twin_s * 1e3
+    n = xyz.shape[0]
+    lib = _cuda.library()
+    out = torch.empty(12, dtype=torch.float32, device=dev)
+    scratch = torch.empty(pca.scratch_words(n), dtype=torch.float32, device=dev)
+    stream = _cuda.stream_ptr(dev)
+
+    def alone():
+        lib.pctpu_pca_moments(xyz.data_ptr(), keep.data_ptr(), n, scratch.data_ptr(),
+                              out.data_ptr(), stream)
+
+    def library_call():
+        w = keep.to(torch.float32)[:, None]
+        count = torch.clamp_min(w.sum(), 1.0)
+        d = (xyz - (xyz * w).sum(0) / count) * w
+        return torch.matmul(d.T, d) / count
+
+    # in turns: kernel, wrapper, library, library, wrapper, kernel
+    timed = {"alone": [], "wrapper": [], "library": []}
+    for key in ("alone", "wrapper", "library", "library", "wrapper", "alone"):
+        fn = {"alone": alone, "wrapper": lambda: pca.pca_moments(xyz, keep),
+              "library": library_call}[key]
+        timed[key].append(cuda_ms(fn, reps=20))
+    ms = {k: min(v) for k, v in timed.items()}
+    kernels, copies, by_kernel = profile_calls(alone, reps=10)
+    live = int(pca.live_rows(xyz, keep, pca.pca_moments(xyz, keep)[0]).sum())
+    bound = pca_moments_bound(n, live, clock_mhz)
+    print(f"  pca_moments at {n:,} rows: {ms['alone']:.4f} ms alone, {ms['wrapper']:.4f} with "
+          f"its wrapper, kernel-only {sum(by_kernel.values()):.6f} ms "
+          f"{ {k: round(v, 6) for k, v in by_kernel.items()} } ({kernels} kernels + {copies} "
+          f"copies a call); twin {twin_ms:.1f} ms; library "
+          f"((xyz·w).sum + torch.matmul(dᵀ, d)) {ms['library']:.4f} ms; bound "
+          f"{bound['ms']:.6f} ms ({bound['by']}: {bound['chain']:,} dependent operations, "
+          f"{live:,} live rows, at {clock_mhz:.0f} MHz; bytes {bound['bytes']:,} B = "
+          f"{bound['bytes'] / 3.35e12 * 1e3:.6f} ms), reached "
+          f"{bound['ms'] / ms['alone']:.4f}; card {smi}")
+
+    # --- 12b. pointcloud_pca_test, card against CPU --------------------------
+    outs, launches = {}, {}
+    for kind in ("cuda", "cpu"):
+        files, walls = {}, []
+        for view in ("top", "front"):
+            png, html = os.path.join(base, f"{kind}_{view}.png"), os.path.join(base, f"{kind}.html")
+            captured = io.StringIO()
+            if kind == "cuda":
+                _cuda.reset_launch_counts()
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(captured), contextlib.redirect_stderr(io.StringIO()):
+                rc = pca_cli.main([pcd, f"--snapshot={png}", f"--snapshot-view={view}",
+                                   f"--html={html}",
+                                   f"--device={dev.type if kind == 'cuda' else 'cpu'}"])
+            if kind == "cuda":
+                torch.cuda.synchronize()
+                launches = dict(_cuda.launch_counts)
+            walls.append(time.perf_counter() - t0)
+            if rc != 0:
+                raise AssertionError(f"pointcloud_pca_test --device={kind} exited {rc}")
+            files[f"stdout {view}"] = captured.getvalue().encode()
+            files[f"{view}.png"] = open(png, "rb").read()
+            files["html"] = open(html, "rb").read()
+        outs[kind] = (files, walls)
+    require_launched(launches, ("pca_moments",), "pointcloud_pca_test --device=cuda")
+    differ = [k for k in outs["cuda"][0] if outs["cuda"][0][k] != outs["cpu"][0][k]]
+    if differ:
+        raise AssertionError(f"pointcloud_pca_test: the card's {differ} differ from the CPU's")
+    print(outs["cuda"][0]["stdout top"].decode(), end="")
+    print(f"pointcloud_pca_test: stdout, both snapshot views and the HTML viewer byte-equal "
+          f"card against CPU; wall a run (top, front) card {outs['cuda'][1][0]:.3f} / "
+          f"{outs['cuda'][1][1]:.3f} s, CPU {outs['cpu'][1][0]:.3f} / {outs['cpu'][1][1]:.3f} "
+          f"s; hand-kernel launches a card run {nonzero(launches)}; card {smi}")
+
+    # --- 12c. top_part_registration on pair 0 -> 1 of the registration tree --
+    tree = os.path.join(base, "registration")
+    scene.registration_tree(tree)
+    q_i, m_i, off = scene.TREE_PAIRS[0]
+    truth = scene.TREE_POSES[m_i] @ np.linalg.inv(scene.TREE_POSES[q_i])
+    guess = f"{np.degrees(np.arctan2(truth[1, 0], truth[0, 0])) + off:.3f}"
+    clouds = [os.path.join(tree, "clouds", f"{k:06d}.pcd") for k in (q_i, m_i)]
+    runs = {}
+    for kind in ("cuda", "cuda", "cpu"):  # the first card run warms up
+        png, html = os.path.join(base, f"tp_{kind}.png"), os.path.join(base, f"tp_{kind}.html")
+        captured = io.StringIO()
+        if kind == "cuda":
+            _cuda.reset_launch_counts()
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(captured):
+            rc = tp_cli.main([*clouds, guess, f"--snapshot={png}", f"--html={html}",
+                              f"--device={dev.type if kind == 'cuda' else 'cpu'}"])
+        if kind == "cuda":
+            torch.cuda.synchronize()
+            tp_launches = dict(_cuda.launch_counts)
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"top_part_registration --device={kind} exited {rc}")
+        log = captured.getvalue()
+        nums = [float(v) for v in re.findall(r"-?\d+\.\d*(?:e[-+]\d+)?", log.split(
+            "is icp converged:")[1])]
+        fine = np.array(nums[1:17]).reshape(4, 4)
+        stage = dict(re.findall(r"\[TIME\] (\d)\S* stage .*?: ([0-9.eE+-]+)ms", log))
+        runs[kind] = (decode_rgb_png(open(png, "rb").read()), read_back_layers(html), fine,
+                      wall, stage, "is icp converged: True" in log)
+    require_launched(tp_launches, ("nn_prep", "nn_pruned", "nn_prep_batched",
+                                   "nn_pruned_batched", "segment_sum4"),
+                     "top_part_registration --device=cuda")
+    for kind in ("cuda", "cpu"):
+        yaw_err, t_err = pose_error(runs[kind][2], truth)
+        print(f"top_part_registration {q_i}->{m_i} --device={kind} (guess {guess}°): converged "
+              f"{runs[kind][5]}, yaw error {yaw_err:.6f} deg, translation error {t_err:.6f} m; "
+              f"[TIME] coarse {runs[kind][4]['1']} ms, fine {runs[kind][4]['2']} ms; wall "
+              f"{runs[kind][3]:.3f} s")
+        if not (runs[kind][5] and yaw_err < 0.5 and t_err < 0.10):
+            raise AssertionError(f"top_part_registration --device={kind} off the truth")
+    img_c, img_h = runs["cuda"][0], runs["cpu"][0]
+    pixels = int((img_c != img_h).any(-1).sum())
+    lay_c, lay_h = runs["cuda"][1], runs["cpu"][1]
+    ends = {k: (lay_c[k].shape, lay_h[k].shape,
+                float(np.abs(lay_c[k] - lay_h[k]).max()) if lay_c[k].shape == lay_h[k].shape
+                else None) for k in lay_h}
+    whiskers = lay_h["normals"].shape[0] // 2
+    moved = (int((np.abs(lay_c["normals"] - lay_h["normals"]) > 0).any(-1).sum())
+             if ends["normals"][2] is not None else None)
+    print(f"top_part_registration snapshot, card against CPU: {pixels} of {img_h.shape[0] * img_h.shape[1]:,} "
+          f"pixels differ; HTML layers (shape card, shape CPU, max |Δ|): {ends}; "
+          f"{moved} of {2 * whiskers} whisker endpoints differ (D3/D5: the normals' radius "
+          f"membership on the card's matmul, the voxel centroids bit-equal); hand-kernel "
+          f"launches {nonzero(tp_launches)}; card {smi}")
+    if ends["original_cloud"][2] != 0.0:
+        raise AssertionError("top_part_registration: the flat cloud differs card against CPU")
+
+    # --- 12d. the selectors into batch_multi_bev_gen -------------------------
+    def digest(root: str) -> dict[str, str]:
+        import hashlib
+
+        return {k: hashlib.sha256(v).hexdigest()[:16]
+                for k, v in sorted(tree_files(root, ("keyframe_point_cloud", "keyframe_pose.csv",
+                                                     "keyframe_pose_format.csv")).items())}
+
+    for name, make, select, sensor in (
+            ("kitti", scene.kitti_tree, kitti_cli, "HDL_64E"),
+            ("mulran", scene.mulran_tree, mulran_cli, "OS1_64")):
+        src = os.path.join(base, name)
+        make(src)
+        with contextlib.redirect_stdout(io.StringIO()):
+            if select.main([src]) != 0:
+                raise AssertionError(f"{name} selector failed")
+        keyframes = os.path.join(src, "selected_keyframes_2.00m")
+        trees = {}
+        for kind in ("cuda", "cpu"):
+            work = os.path.join(base, f"{name}_{kind}")
+            shutil.copytree(keyframes, work)
+            if kind == "cuda":
+                _cuda.reset_launch_counts()
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = bev_cli.main([work, sensor,
+                                   f"--device={dev.type if kind == 'cuda' else 'cpu'}"])
+            if kind == "cuda":
+                torch.cuda.synchronize()
+                bev_launches = dict(_cuda.launch_counts)
+            if rc != 0:
+                raise AssertionError(f"batch_multi_bev_gen {sensor} --device={kind} exited {rc}")
+            trees[kind] = (tree_files(work), time.perf_counter() - t0)
+        require_launched(bev_launches, ("bev_raster", "ground_sums"),
+                         f"batch_multi_bev_gen {sensor} on the {name} selection")
+        card, cpu = trees["cuda"][0], trees["cpu"][0]
+        differ = sorted(k for k in card if card[k] != cpu.get(k)) + sorted(set(cpu) - set(card))
+        if differ or not card:
+            raise AssertionError(f"{name} -> batch_multi_bev_gen: card tree differs from the "
+                                 f"CPU's in {differ[:5]}")
+        print(f"{name} selector -> batch_multi_bev_gen {sensor}: {len(card)} files byte-equal "
+              f"card against CPU (card {trees['cuda'][1]:.3f} s, CPU {trees['cpu'][1]:.3f} s); "
+              f"selection {digest(keyframes)}; hand-kernel launches {nonzero(bev_launches)}")
+    for name, make, select, sub in (
+            ("oxford", scene.oxford_tree, oxford_cli, "selected_keyframes_2.00m"),
+            ("kitti_raw", lambda root: scene.kitti_tree(root, raw=True), kitti_raw_cli,
+             "selected_keyframes")):
+        src = os.path.join(base, name)
+        make(src)
+        with contextlib.redirect_stdout(io.StringIO()):
+            if select.main([src]) != 0:
+                raise AssertionError(f"{name} selector failed")
+        print(f"{name} selector: {digest(os.path.join(src, sub))}")
+    shutil.rmtree(base)
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+    return {"name": "pca_moments", "route": "cuda", "source": "pctpu_torch/csrc/pca_moments.cu",
+            "replaces": "pctpu/ops/pca.py:40-43", "launches": launches["pca_moments"],
+            "max_abs_err": err, "ms": ms["alone"], "plain_ms": twin_ms,
+            "bound_ms": bound["ms"], "bound_by": "bytes" if bound["by"] == "bytes" else "operations",
+            "library_ms": ms["library"], "bound_detail": bound["by"],
+            "wrapper_ms": ms["wrapper"]}
+
+
 def run_logged(fn, *args):
     """``fn(*args)`` with its standard output captured: (result, log)."""
     captured = io.StringIO()
@@ -1590,6 +1882,9 @@ def main() -> int:
     # --- 11. batch_cloud_manip and cloud_manip -------------------------------
     cloud_manip_phase(dev, smi)
 
+    # --- 12. pointcloud_pca_test, top_part_registration, the selectors --------
+    pca_kernel = pca_phase(dev, smi, clock_mhz)
+
     # K1, the prep and K4's <128, 1024, prod> on the fine pass at thr 1 m
     fine = nn_ms["fine thr 1 m"]
     big_fused = fused[0]
@@ -1632,6 +1927,7 @@ def main() -> int:
          "plain_ms": fine["twin"], "bound_ms": fine["bound"], "bound_by": fine["bound_by"],
          "library_ms": fine["library"]},
         *bev_kernels,
+        pca_kernel,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,6 +40,17 @@ from pctpu_torch.config import (  # noqa: E402
     registration_config_from,
 )
 
+
+
+def __getattr__(name):
+    # the PCA2D library facade, imported on first use as pctpu defers it
+    if name == "PCA2D":
+        from pctpu_torch.ops.pca2d import PCA2D
+
+        return PCA2D
+    raise AttributeError(name)
+
+
 __version__ = "0.1.0"
 
 __all__ = [
@@ -48,6 +59,7 @@ __all__ = [
     "IcpConfig",
     "MultiBevConfig",
     "Normal2dEstimation",
+    "PCA2D",
     "RegistrationConfig",
     "SensorParams",
     "SingleBevConfig",

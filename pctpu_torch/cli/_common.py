@@ -25,10 +25,11 @@ def usage_exit(msg: str) -> None:
     sys.exit(1)
 
 
-def pick_device(kw: dict[str, str]) -> str:
+def pick_device(kw: dict[str, str], file=None) -> str:
     """The ``--device=cuda|cpu`` extension (default ``cuda``), printed as
-    ``device: ...``.  Without a CUDA card the run stops unless the CPU was
-    asked for: nothing falls back silently."""
+    ``device: ...`` to ``file`` (standard output unless given).  Without a
+    CUDA card the run stops unless the CPU was asked for: nothing falls back
+    silently."""
     device = kw.get("device", "cuda")
     if device not in ("cuda", "cpu"):
         usage_exit(f"--device must be cuda or cpu (got {device!r})")
@@ -37,9 +38,9 @@ def pick_device(kw: dict[str, str]) -> str:
             print("no CUDA card found (torch.cuda.is_available() is false); "
                   "pass --device=cpu to run on the CPU", file=sys.stderr)
             sys.exit(2)
-        print(f"device: cuda ({torch.cuda.get_device_name()})")
+        print(f"device: cuda ({torch.cuda.get_device_name()})", file=file or sys.stdout)
     else:
-        print("device: cpu")
+        print("device: cpu", file=file or sys.stdout)
     return device
 
 

@@ -17,7 +17,7 @@ H100_F32_FLOP_PER_S = 67e12
 # flops a (query, target) pair costs in the exact 1-NN: 3 sub, 1 mul,
 # 2 fma (2 flops each), 1 compare
 NN_FLOP_PER_PAIR = 9
-# cycles from one f32 add to a dependent one on Hopper's SMs
+# cycles from one f32 add (or fma) to a dependent one on Hopper's SMs
 F32_ADD_LATENCY_CYCLES = 4
 
 
@@ -48,6 +48,29 @@ def segment_sums_bound(seg: torch.Tensor, lanes: int, n_out: int,
     return {"ms": max(t_bytes, t_chain), "by": "bytes" if t_bytes >= t_chain else "chain",
             "bytes": n_bytes, "chain_ms": t_chain, "rows": rows, "segments": segments,
             "longest": longest}
+
+
+def pca_moments_bound(n: int, live: int, clock_mhz: float) -> dict:
+    """The least time the card could take for ``pca.pca_moments`` over n
+    rows of which ``live`` are ``pca.live_rows``, reckoned from the work: the
+    larger of its bytes over the memory rate — each row's 12 B of xyz and 1
+    B of mask read once, the 12 output floats written once — and the one
+    cost the order itself imposes: the longest chain of dependent f32
+    operations at ``clock_mhz``, 4 cycles each.  That chain is the mean's
+    tree (32 adds a level on its critical path, then the last ≤ 32 in
+    order) followed by one covariance chain of an fma a live row (the other
+    rows leave every chain as it was).  Returns ms, by ("bytes" or
+    "chain"), bytes, chain_ms and the chain's length."""
+    depth, size = 0, n
+    while size > 32:
+        depth += 32
+        size = -(-size // 32)
+    chain = depth + size + live
+    n_bytes = n * 13 + 12 * 4
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_chain = chain * F32_ADD_LATENCY_CYCLES / (clock_mhz * 1e6) * 1e3
+    return {"ms": max(t_bytes, t_chain), "by": "bytes" if t_bytes >= t_chain else "chain",
+            "bytes": n_bytes, "chain_ms": t_chain, "chain": chain}
 
 
 def oracle_pairs(query: torch.Tensor, query_mask: torch.Tensor, d2: torch.Tensor,
@@ -107,19 +130,23 @@ def profile_calls(fn, reps: int = 50) -> tuple[int, int, dict[str, float]]:
     """What one call of ``fn`` puts on the card, by torch.profiler over
     ``reps`` calls after a warm-up: (kernels, copies and memsets, {kernel,
     copy or memset name: device ms}), per call.  The counts are rounded: the profiler can
-    miss an event or two of a window.  It can also come back with no device
-    event at all; such a window is taken again, up to three times."""
+    miss events of a window (it never adds one), and it can come back with
+    none at all.  So a window whose device events are not a whole number a
+    call is taken again, up to three times, and the fullest one is kept."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    events: list = []
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if events:
+        window = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(window) > len(events):
+            events = window
+        if window and len(window) % reps == 0:
             break
     copies = [e for e in events if e.name.startswith(("Memcpy", "Memset"))]
     ms: dict[str, float] = {}

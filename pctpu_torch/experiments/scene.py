@@ -1,8 +1,12 @@
 """Scenes for the card's measurements, in numpy: the registration bench
 scene — the port's copy of ``bench.py``'s ``registration_scene``
 (bench.py:968-999), which builds pctpu clouds and so cannot be imported
-here — the registration CLIs' tree of moved copies of it, and a ray-cast
-LiDAR drive for batch_multi_bev_gen."""
+here — the registration CLIs' tree of moved copies of it, a ray-cast
+LiDAR drive for batch_multi_bev_gen, and raw dataset trees of such a drive
+for the four selectors (KITTI and KITTI-raw with an HDL-64E, MulRan with an
+Ouster OS1-64, Oxford with an HDL-32E, each at its real width;
+``tests/fixtures.py`` builds small trees of the same layouts, but imports
+pctpu)."""
 
 from __future__ import annotations
 
@@ -124,18 +128,11 @@ def _world_boxes(rng: np.random.Generator, length: float) -> np.ndarray:
     return np.asarray(boxes, np.float64)
 
 
-def raycast_frame(params, boxes: np.ndarray, origin: np.ndarray, yaw: float,
-                  rng: np.random.Generator, sensor_height: float = 1.73,
-                  max_range: float = 120.0) -> dict:
-    """One grid-ordered scan: slot ``r*H + c`` holds ring r's return at
-    azimuth bin c, in the sensor frame (ground at z = -sensor_height), or
-    all-zero where the ray hit nothing (sky, and a 7% dropout).  Returns
-    the XYZIRCT field dict (row/col u16, t u32, label i16)."""
-    n, h = params.n_scan, params.horizon_scan
-    el = np.radians(_hdl64e_elevations(n))[:, None]
-    az = (np.arange(h) * (2.0 * np.pi / h) + yaw)[None, :]
-    d = np.stack(np.broadcast_arrays(np.cos(el) * np.cos(az), np.cos(el) * np.sin(az),
-                                     np.sin(el)), -1).reshape(-1, 3)
+def _ray_lengths(d: np.ndarray, origin: np.ndarray, boxes: np.ndarray,
+                 sensor_height: float, max_range: float) -> np.ndarray:
+    """Distance along each unit ray of ``d`` (M, 3) from a sensor at
+    ``origin`` (x, y), ``sensor_height`` above the ground plane, to the
+    ground or the nearest box; +inf where nothing is hit."""
     o = np.array([origin[0], origin[1], sensor_height])
     # boxes out of reach are skipped; f32 and fmax keep a 64-ring scan at
     # a fraction of a second
@@ -152,6 +149,22 @@ def raycast_frame(params, boxes: np.ndarray, origin: np.ndarray, yaw: float,
             near = np.fmax(np.fmax(lo[:, 0], lo[:, 1]), lo[:, 2])
             far = np.fmin(np.fmin(hi[:, 0], hi[:, 1]), hi[:, 2])
             t = np.where((far >= near) & (near > 0) & (near < t), near, t)
+    return t
+
+
+def raycast_frame(params, boxes: np.ndarray, origin: np.ndarray, yaw: float,
+                  rng: np.random.Generator, sensor_height: float = 1.73,
+                  max_range: float = 120.0) -> dict:
+    """One grid-ordered scan: slot ``r*H + c`` holds ring r's return at
+    azimuth bin c, in the sensor frame (ground at z = -sensor_height), or
+    all-zero where the ray hit nothing (sky, and a 7% dropout).  Returns
+    the XYZIRCT field dict (row/col u16, t u32, label i16)."""
+    n, h = params.n_scan, params.horizon_scan
+    el = np.radians(_hdl64e_elevations(n))[:, None]
+    az = (np.arange(h) * (2.0 * np.pi / h) + yaw)[None, :]
+    d = np.stack(np.broadcast_arrays(np.cos(el) * np.cos(az), np.cos(el) * np.sin(az),
+                                     np.sin(el)), -1).reshape(-1, 3)
+    t = _ray_lengths(d, origin, boxes, sensor_height, max_range)
     hit = (t < max_range) & (rng.random(n * h) >= 0.07)
     t = np.where(hit, t + rng.normal(0.0, 0.02, n * h), 0.0)
     rel = d * t[:, None]
@@ -226,3 +239,150 @@ def multi_bev_tree(root: str, params, n_ordered: int, n_raw: int = 2, n_over: in
     with open(os.path.join(root, "keyframe_pose.csv"), "w") as f:
         f.writelines(poses)
     return paths
+
+
+# the selectors' sensors: ring elevations in degrees (top ring first)
+def _os1_64_elevations() -> np.ndarray:
+    return 16.6 - np.arange(64) * (33.2 / 63.0)
+
+
+def _hdl32e_elevations() -> np.ndarray:
+    return 10.67 - np.arange(32) * 1.3335
+
+
+def _scan(boxes: np.ndarray, origin: np.ndarray, yaw: float, elevations: np.ndarray,
+          cols: int, rng: np.random.Generator, sensor_height: float = 1.73,
+          max_range: float = 120.0):
+    """One sweep in the sensor frame: (rings, cols, 3) returns, the
+    (rings, cols) hit mask (a 7% dropout besides the sky) and intensities;
+    column c looks along local azimuth c·360°/cols."""
+    el = np.radians(elevations)[:, None]
+    az = (np.arange(cols) * (2.0 * np.pi / cols) + yaw)[None, :]
+    d = np.stack(np.broadcast_arrays(np.cos(el) * np.cos(az), np.cos(el) * np.sin(az),
+                                     np.sin(el)), -1).reshape(-1, 3)
+    t = _ray_lengths(d, origin, boxes, sensor_height, max_range)
+    m = d.shape[0]
+    hit = (t < max_range) & (rng.random(m) >= 0.07)
+    rel = d * np.where(hit, t + rng.normal(0.0, 0.02, m), 0.0)[:, None]
+    c, s = np.cos(-yaw), np.sin(-yaw)
+    local = np.stack([c * rel[:, 0] - s * rel[:, 1], s * rel[:, 0] + c * rel[:, 1],
+                      rel[:, 2]], 1).astype(np.float32)
+    shape = (len(elevations), cols)
+    return (local.reshape(*shape, 3), hit.reshape(shape),
+            rng.uniform(0.05, 1.0, m).astype(np.float32).reshape(shape))
+
+
+def _drive_pose(u: float, spacing: float) -> tuple[float, float, float]:
+    """The selectors' drive: the true (x, y, yaw) at drive parameter u
+    (frames); 2.5 m off the road's axis, so that MulRan's and Oxford's
+    gate, which starts from the origin, keeps the first frame."""
+    return spacing * u, 2.5 + 0.5 * np.sin(u / 7.0), 0.02 * u
+
+
+def _matrix(x: float, y: float, yaw: float) -> np.ndarray:
+    t = np.eye(4)
+    c, s = np.cos(yaw), np.sin(yaw)
+    t[:2, :2] = [[c, -s], [s, c]]
+    t[0, 3], t[1, 3] = x, y
+    return t
+
+
+def kitti_tree(root: str, n_frames: int = 5, spacing: float = 3.0, seed: int = 9,
+               raw: bool = False) -> None:
+    """A KITTI odometry tree (``velodyne/*.bin``, ``times.txt``,
+    ``global_pose.txt``) of an HDL-64E drive, each scan in the sensor's
+    order: ring by ring, each ring sweeping azimuth from +180° down to
+    −180°, so that the selector's ring segmentation finds the rings (up to
+    64 × 2083 = 133,312 slots).  ``global_pose.txt`` holds camera poses,
+    the lidar poses conjugated by the KITTI extrinsic; with ``raw`` it holds
+    the lidar poses themselves (the raw variant's reading)."""
+    from pctpu_torch.io.kitti import CAM_WRT_LIDAR, HORIZON_SCAN, N_SCAN
+
+    rng = np.random.default_rng(seed)
+    boxes = _world_boxes(rng, spacing * n_frames)
+    os.makedirs(os.path.join(root, "velodyne"), exist_ok=True)
+    ang = np.arange(HORIZON_SCAN) * (2.0 * np.pi / HORIZON_SCAN)
+    sweep = np.argsort(-np.where(ang > np.pi, ang - 2.0 * np.pi, ang), kind="stable")
+    rows = []
+    for k in range(n_frames):
+        x, y, yaw = _drive_pose(k, spacing)
+        pts, hit, inten = _scan(boxes, np.array([x, y]), yaw,
+                                _hdl64e_elevations(N_SCAN), HORIZON_SCAN, rng)
+        pts, hit, inten = pts[:, sweep], hit[:, sweep], inten[:, sweep]
+        np.concatenate([pts[hit], inten[hit][:, None]], 1).astype(np.float32).tofile(
+            os.path.join(root, "velodyne", f"{k:06d}.bin"))
+        lidar = _matrix(x, y, yaw)
+        pose = lidar if raw else np.linalg.inv(CAM_WRT_LIDAR) @ lidar @ CAM_WRT_LIDAR
+        rows.append(" ".join(f"{v:.9e}" for v in pose[:3, :4].reshape(-1)))
+    with open(os.path.join(root, "global_pose.txt"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    with open(os.path.join(root, "times.txt"), "w") as f:
+        f.write("\n".join(f"{k * 0.1:.6e}" for k in range(n_frames)) + "\n")
+
+
+def _bracketing_gt(n_frames: int, spacing: float, t0: int):
+    """Ground-truth stamps and poses half a frame before and after each
+    cloud's stamp ``t0 + k·100,000``, so that the selector interpolates
+    every cloud's pose."""
+    stamps = [t0 - 50_000 + k * 100_000 for k in range(n_frames + 1)]
+    return stamps, [_matrix(*_drive_pose(k - 0.5, spacing)) for k in range(n_frames + 1)]
+
+
+def mulran_tree(root: str, n_frames: int = 5, spacing: float = 3.0, seed: int = 10) -> None:
+    """A MulRan tree (``sensor_data/Ouster/<stamp>.bin``,
+    ``sensor_data/ouster_front_stamp.csv``, ``global_pose.csv``) of an
+    Ouster OS1-64 drive: 64 × 1024 = 65,536 returns a scan in the sensor's
+    order (column by column, ring = index mod 64), (0, 0, 0, 0) where a ray
+    hit nothing."""
+    rng = np.random.default_rng(seed)
+    boxes = _world_boxes(rng, spacing * n_frames)
+    data = os.path.join(root, "sensor_data")
+    os.makedirs(os.path.join(data, "Ouster"), exist_ok=True)
+    t0 = 1_000_000_000
+    stamps = [t0 + k * 100_000 for k in range(n_frames)]
+    for k, stamp in enumerate(stamps):
+        x, y, yaw = _drive_pose(k, spacing)
+        pts, hit, inten = _scan(boxes, np.array([x, y]), yaw, _os1_64_elevations(), 1024, rng)
+        rows = np.where(hit[..., None], np.concatenate([pts, inten[..., None]], -1), 0.0)
+        rows.transpose(1, 0, 2).astype(np.float32).tofile(
+            os.path.join(data, "Ouster", f"{stamp:010d}.bin"))
+    gt_stamps, gt = _bracketing_gt(n_frames, spacing, t0)
+    with open(os.path.join(root, "global_pose.csv"), "w") as f:
+        for stamp, m in zip(gt_stamps, gt):
+            f.write(f"{stamp}," + ",".join(f"{v:.9e}" for v in m[:3, :4].reshape(-1)) + "\n")
+    with open(os.path.join(data, "ouster_front_stamp.csv"), "w") as f:
+        f.write("\n".join(str(s) for s in stamps) + "\n")
+
+
+def oxford_tree(root: str, n_frames: int = 5, spacing: float = 3.0, seed: int = 11) -> None:
+    """An Oxford Radar RobotCar tree (``velodyne_left/<stamp>.bin``,
+    ``velodyne_left.timestamps``, ``gps/ins.csv``) of an HDL-32E drive,
+    32 × 1056 rays a scan: the returns stored column-wise (all x, then y,
+    z and intensity) as the upside-down sensor gives them (x and z
+    negated), and INS rows (UTM easting and northing) bracketing the
+    scans."""
+    rng = np.random.default_rng(seed)
+    boxes = _world_boxes(rng, spacing * n_frames)
+    os.makedirs(os.path.join(root, "velodyne_left"), exist_ok=True)
+    os.makedirs(os.path.join(root, "gps"), exist_ok=True)
+    t0 = 1_500_000_000
+    stamps = [t0 + k * 100_000 for k in range(n_frames)]
+    for k, stamp in enumerate(stamps):
+        x, y, yaw = _drive_pose(k, spacing)
+        pts, hit, inten = _scan(boxes, np.array([x, y]), yaw, _hdl32e_elevations(), 1056, rng)
+        p, i = pts[hit], inten[hit]
+        np.concatenate([-p[:, 0], p[:, 1], -p[:, 2], i]).astype(np.float32).tofile(
+            os.path.join(root, "velodyne_left", f"{stamp:010d}.bin"))
+    gt_stamps, gt = _bracketing_gt(n_frames, spacing, t0)
+    lines = ["timestamp,ins_status,latitude,longitude,altitude,northing,easting,down,"
+             "utm_zone,velocity_north,velocity_east,velocity_down,roll,pitch,yaw"]
+    for stamp, m in zip(gt_stamps, gt):
+        yaw = np.arctan2(m[1, 0], m[0, 0])
+        # the reader takes yaw from token 12 and roll from token 14
+        lines.append(f"{stamp},INS_SOLUTION_GOOD,51.76,-1.26,110.0,"
+                     f"{5735800.0 + m[1, 3]:.6f},{620000.0 + m[0, 3]:.6f},-110.0,30U,"
+                     f"0.0,0.0,0.0,{yaw:.9f},0.0,0.0")
+    with open(os.path.join(root, "gps", "ins.csv"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(os.path.join(root, "velodyne_left.timestamps"), "w") as f:
+        f.write("\n".join(f"{s} 1" for s in stamps) + "\n")

@@ -26,7 +26,8 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / f for f in (
-    "nn_pruned_warp.cu", "nn_pruned.cu", "segment_sum.cu", "nn_fused.cu", "bev_raster.cu"))
+    "nn_pruned_warp.cu", "nn_pruned.cu", "segment_sum.cu", "nn_fused.cu", "bev_raster.cu",
+    "pca_moments.cu"))
 BUILD_DIR = _PKG.parent / "build" / "pctpu_torch"
 
 # the (TQ, TT, MODE) instances of csrc/nn_pruned.cu's kernel template that
@@ -48,7 +49,7 @@ launch_counts: dict[str, int] = {
     "nn_prep": 0, "nn_pruned": 0, "nn_pruned_count": 0, "nn_prep_batched": 0,
     "nn_pruned_batched": 0, "segment_sum4": 0, "nn_fused": 0,
     "nn_variant": 0, "ground_sums": 0, "bev_raster": 0, "segment_sum_walk": 0,
-    "nn_fused_v1": 0, "bev_raster_v1": 0,
+    "nn_fused_v1": 0, "bev_raster_v1": 0, "pca_moments": 0,
 }
 
 _lib: ctypes.CDLL | None = None
@@ -161,6 +162,10 @@ def library() -> ctypes.CDLL:
             p, p, p, i64, i64, i32, i32, f, f, f, f, f, f, p, p, p, p, p, p,
         ]
         lib.pctpu_bev_raster_v1.restype = ctypes.c_int
+        lib.pctpu_pca_moments.argtypes = [p, p, i64, p, p, p]
+        lib.pctpu_pca_moments.restype = ctypes.c_int
+        lib.pctpu_pca_moments_scratch_words.argtypes = [i64]
+        lib.pctpu_pca_moments_scratch_words.restype = i64
         _lib = lib
     return _lib
 

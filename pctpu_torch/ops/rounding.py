@@ -1,5 +1,6 @@
 """C ``round()`` and the BEV cell index of f32 values, bit-exact (the port
-of ``pctpu/ops/rounding.py``), and OpenCV's ``saturate_cast<uchar>`` of a
+of ``pctpu/ops/rounding.py``; ``c_round_np`` and ``bev_cell_np`` are their
+numpy forms, which the dataset readers use), and OpenCV's ``saturate_cast<uchar>`` of a
 float image for the float BEV PNGs.
 
 ``x86_nan`` gives a NaN result the bits pctpu's CPU arithmetic gives it, so
@@ -67,6 +68,22 @@ def bev_cell(coord: torch.Tensor, max_range: float, interval: float) -> torch.Te
     t = (coord + max_range) / interval
     return torch.where(t >= -0.5, to_i32(torch.floor(t)) + 1, to_i32(torch.ceil(t)))
 
+
+def c_round_np(v) -> np.ndarray:
+    """C ``round()`` in numpy (float64 inputs): the dataset readers' ring
+    and column indices."""
+    v = np.asarray(v)
+    a = np.abs(v)
+    k = np.floor(a)
+    r = k + (a - k >= 0.5)
+    return np.where(v < 0, -r, r)
+
+
+def bev_cell_np(coord, max_range: float, interval: float) -> np.ndarray:
+    """numpy twin of :func:`bev_cell` (f32 expression, f64 + 0.5, C round)."""
+    t = (np.float32(coord) + np.float32(max_range)) / np.float32(interval)
+    t = t.astype(np.float64)
+    return c_round_np(t + 0.5).astype(np.int32)
 
 
 def cv_saturate_u8(v: np.ndarray) -> np.ndarray:

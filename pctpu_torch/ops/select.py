@@ -1,6 +1,5 @@
-"""Major-frame selection and soft one-hot keyframe labels (host numpy, the
-port of ``pctpu/ops/select.py``'s two functions that batch_multi_bev_gen
-runs).  Pose tables are tiny, so the reference's nanoflann 1-NN / 2-NN
+"""Keyframe gating, major-frame selection and soft one-hot keyframe labels
+(host numpy, the port of ``pctpu/ops/select.py``).  Pose tables are tiny, so the reference's nanoflann 1-NN / 2-NN
 queries (reference/BatchMultiBevGen.cpp:534-550, 593-613) are exact
 brute-force distances here, as in pctpu.
 """
@@ -10,6 +9,34 @@ from __future__ import annotations
 import numpy as np
 
 from pctpu_torch.config import SelectConfig
+
+
+def greedy_keyframe_mask(
+    positions: np.ndarray,
+    interval: float,
+    sentinel: tuple[float, float, float] = (-1e10, -1e10, 0.0),
+) -> np.ndarray:
+    """Greedy distance gate over a pose sequence — the keyframe gate used by
+    every selector pipeline.
+
+    positions: (N, 3) float32.  Keeps frame i iff its f32 distance to the
+    last *kept* frame is >= interval
+    (reference/KittiPointCloudSelect.cpp:442-470).  The first comparison is
+    against ``sentinel``: KITTI uses (-1e10, -1e10, 0) (:440, the default —
+    frame 0 always kept); MulRan/Oxford start from the origin
+    (reference/MulranPointCloudSelect.cpp:318), so their frame 0 is kept
+    only if it is >= interval from (0, 0, 0).
+    """
+    positions = np.asarray(positions, np.float32)
+    keep = np.zeros(len(positions), bool)
+    last = np.asarray(sentinel, np.float32)
+    for i, p in enumerate(positions):
+        d = np.sqrt(np.sum((p - last) ** 2, dtype=np.float32))
+        if d < interval:
+            continue
+        keep[i] = True
+        last = p
+    return keep
 
 
 def select_major_frames(

@@ -3,6 +3,8 @@
 
 from __future__ import annotations
 
+import sys
+
 COLOR_RESET = "\033[0m"
 COLOR_GREEN = "\033[32m"
 COLOR_RED = "\033[31m"
@@ -19,3 +21,7 @@ def green(msg: str) -> None:
 def red(msg: str) -> None:
     print(f"{COLOR_RED}{msg}{COLOR_RESET}")
 
+
+
+def error(msg: str) -> None:
+    print(msg, file=sys.stderr)

@@ -494,3 +494,45 @@ def test_render_snapshot_card_equals_cpu(dev, view):
     got = render_snapshot(layers, view=view, device=dev)
     want = render_snapshot(layers, view=view, device="cpu")
     assert np.array_equal(got, want) and len(np.unique(got.reshape(-1, 3), axis=0)) >= 3
+
+
+def _pca_rows(n: int, seed: int, dev):
+    rng = np.random.default_rng(seed)
+    xyz = (rng.normal(size=(n, 3)) * rng.uniform(0.5, 40.0, 3)).astype(np.float32)
+    xyz[:, 2] *= rng.random() < 0.5  # flattened clouds, as the CLI's filter gives them
+    return torch.from_numpy(xyz).to(dev), torch.from_numpy(rng.random(n) < 0.7).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 2, 31, 32, 33, 1025, 4095, 4096, 4097, 8192, 8193, 20000])
+def test_pca_moments(dev, n):
+    """The kernel equals its twin on the card in every bit at ragged sizes
+    (tiles of 4,096 rows and chunks of 2,048 live rows, one row more or
+    less, the tree's level edges),
+    with the rows masked at random, all masked, all kept, and kept in runs
+    of 1,000 (tiles and fill warps with no live row between live ones)."""
+    from pctpu_torch.ops import pca
+
+    xyz, mask = _pca_rows(n, n, dev)
+    runs = (torch.arange(n, device=dev) // 1000) % 3 == 1
+    for m in (mask, torch.zeros_like(mask), torch.ones_like(mask), runs):
+        got = pca.pca_moments(xyz, m)
+        assert _bit_equal(got, pca.pca_moments_reference(xyz, m)), n
+
+
+@pytest.mark.cuda
+def test_pca_moments_nan_and_inf(dev):
+    """NaN and ±inf rows, masked and kept: the kernel's NaNs and infinities
+    fall where the twin's do, bit for bit on the card."""
+    from pctpu_torch.ops import pca
+
+    xyz, mask = _pca_rows(3000, 5, dev)
+    xyz[10, 0] = float("nan")
+    xyz[20, 1] = float("inf")
+    xyz[2500, 2] = -float("inf")
+    xyz[2999] = float("nan")
+    for m in (mask, torch.ones_like(mask), torch.zeros_like(mask)):
+        got = pca.pca_moments(xyz, m)
+        assert _bit_equal(got, pca.pca_moments_reference(xyz, m))
+    mu, cov = pca.pca_moments(xyz[:100], mask[:100])
+    assert bool(torch.isnan(mu[0])) and bool(torch.isnan(cov).any())

@@ -133,13 +133,14 @@ def test_loader_matches_pctpu_on_an_over_capacity_cloud(small_tree, with_params)
 
 
 def test_package_exports_match_pctpu():
-    """``pctpu_torch`` exports what ``pctpu`` does, but the ``PCA2D`` facade
-    (not ported yet), plus its own config and array helpers."""
+    """``pctpu_torch`` exports everything ``pctpu`` does, plus its own config
+    and array helpers."""
     import pctpu
     import pctpu_torch
 
-    missing = set(pctpu.__all__) - set(pctpu_torch.__all__)
-    assert missing == {"PCA2D"}
+    assert set(pctpu.__all__) - set(pctpu_torch.__all__) == set()
+    assert set(pctpu_torch.__all__) - set(pctpu.__all__) == {
+        "IcpConfig", "from_numpy", "registration_config_from"}
     for name in pctpu_torch.__all__:
         assert getattr(pctpu_torch, name) is not None
     hdl64 = pctpu_torch.get_sensor_params(pctpu_torch.parse_sensor_type("HDL_64E"))

@@ -363,6 +363,15 @@ def test_port_imports_no_jax():
         "import pctpu_torch.pipelines.cloud_manip, pctpu_torch.cli.cloud_manip\n"
         "import pctpu_torch.ops.render, pctpu_torch.io.html_viewer, pctpu_torch.io.csvfmt\n"
         "import pctpu_torch.io.png, pctpu_torch.experiments.oracle\n"
+        "import pctpu_torch.ops.pca, pctpu_torch.ops.pca2d, pctpu_torch.geom.se3\n"
+        "import pctpu_torch.cli.pointcloud_pca_test, pctpu_torch.cli.top_part_registration\n"
+        "import pctpu_torch.pipelines.selectors, pctpu_torch.io.poses\n"
+        "import pctpu_torch.io.kitti, pctpu_torch.io.mulran, pctpu_torch.io.oxford\n"
+        "import pctpu_torch.cli.kitti_point_cloud_select\n"
+        "import pctpu_torch.cli.kitti_raw_point_cloud_select\n"
+        "import pctpu_torch.cli.mulran_point_cloud_select\n"
+        "import pctpu_torch.cli.oxford_point_cloud_select\n"
+        "assert pctpu_torch.PCA2D is pctpu_torch.ops.pca2d.PCA2D\n"
         "from pctpu_torch.runtime import native_io\n"
         "assert native_io._lib is None and not native_io._tried\n"
         "from pctpu_torch.ops import _cuda\n"
