@@ -12,7 +12,9 @@ Layers:
   pctpu_torch.ops               torch ops + the hand-written CUDA kernels
   pctpu_torch.pipelines         batch_multi_bev_gen and the sequential and
                                 pair-batched registration pipelines
-  pctpu_torch.runtime           loader, writers, stage timing ([TIME])
+  pctpu_torch.parallel          process groups (strided work lists) and
+                                device meshes (data and point sharding)
+  pctpu_torch.runtime           loader, writers, stage timing ([TIME]), traces
   pctpu_torch.cli               reference-compatible entry points
 
 Full-f32 rule: reduced-precision products flip nearest-neighbour winners and

@@ -3,6 +3,7 @@ reference binaries, plus optional --key=value extensions."""
 
 from __future__ import annotations
 
+import contextlib
 import sys
 
 import torch
@@ -69,3 +70,46 @@ def path_kw(kw: dict[str, str], key: str, default: str | None = None) -> str | N
         usage_exit(f"--{key.replace('_', '-')} requires a value: "
                    f"--{key.replace('_', '-')}=PATH")
     return val
+
+
+def devices_kw(kw: dict[str, str], device: str) -> int | None:
+    """The ``--devices=N`` extension (a data mesh of N devices).  On the
+    card it needs N cards: with fewer the run stops with exit code 2, as
+    ``--device=cuda`` does without a card, and never runs on fewer devices
+    than asked.  With ``--device=cpu`` the mesh is N logical CPU devices."""
+    devices = int_kw(kw, "devices", None)
+    if devices is not None and devices < 1:
+        usage_exit(f"--devices must be at least 1 (got {devices})")
+    if device == "cuda" and devices is not None and devices > torch.cuda.device_count():
+        print(f"--devices={devices} needs {devices} CUDA cards, this process sees "
+              f"{torch.cuda.device_count()}", file=sys.stderr)
+        sys.exit(2)
+    return devices
+
+
+@contextlib.contextmanager
+def process_group(kw: dict[str, str], device: str, devices: int | None):
+    """``--num-processes=N --process-id=K --coordinator=host:port``:
+    (N, K) for the pipeline, as given (None where absent).  With N > 1 and a
+    coordinator the process joins the group for the block and leaves it
+    after, so a run never hangs at teardown.  With N > 1 on the card the
+    process runs on cards of its own: the first of its ``devices`` (default
+    1) cards in ``parallel.distributed.process_cards`` becomes its current
+    card, printed as ``process K on cuda:C``."""
+    from pctpu_torch.parallel.distributed import (initialize, process_cards, process_index,
+                                                  shutdown)
+
+    nproc = int_kw(kw, "num_processes", None)
+    pid = int_kw(kw, "process_id", None)
+    joined = nproc is not None and nproc > 1 and "coordinator" in kw
+    if joined:
+        initialize(kw["coordinator"], nproc, pid)
+    try:
+        if device == "cuda" and (joined or (nproc or 1) > 1):
+            card = process_cards(devices or 1, pid)[0]
+            torch.cuda.set_device(card)
+            print(f"process {process_index() if pid is None else pid} on {card}")
+        yield nproc, pid
+    finally:
+        if joined:
+            shutdown()

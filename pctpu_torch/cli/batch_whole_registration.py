@@ -6,15 +6,16 @@ same as ``pctpu.cli.batch_whole_registration``.
 Runs on the CUDA card, or on the CPU with ``--device=cpu``; without a card
 and that flag it exits non-zero.  The device in use is printed.
 ``--pair-batch=N`` runs N pairs as one batch through every stage (default 16
-on the card, 1 on the CPU); device meshes and multi-process sharding are not
-ported yet."""
+on the card, 1 on the CPU).  pctpu's ``--devices=N`` (each batch split over
+a data mesh; on the card N cards, or exit code 2) and ``--num-processes=N
+--process-id=K --coordinator=host:port`` (each process a strided share of
+the pairs and its own ``<report>.shard<K>``) are taken as pctpu takes them."""
 
 import sys
 
-from pctpu_torch.cli._common import int_kw, pick_device, split_args, usage_exit
+from pctpu_torch.cli._common import (devices_kw, int_kw, pick_device, process_group,
+                                     split_args, usage_exit)
 from pctpu_torch.pipelines.registration import run_batch_whole_registration
-
-_NOT_PORTED = ("devices", "num_processes", "process_id", "coordinator")
 
 
 def main(argv=None) -> int:
@@ -26,23 +27,25 @@ def main(argv=None) -> int:
             "            --resume (skip pairs already in <report>.progress)\n"
             "            --device=cuda|cpu (default cuda)\n"
             "            --pair-batch=N (pairs batched through every stage;\n"
-            "            default 16 on the card, 1 on the CPU)"
-        )
-    if any(k in kw for k in _NOT_PORTED):
-        raise NotImplementedError(
-            "pctpu_torch runs on one device in one process: "
-            "--devices and multi-process flags are not ported"
+            "            default 16 on the card, 1 on the CPU)  --devices=N\n"
+            "            (data mesh)  --num-processes=N --process-id=K\n"
+            "            --coordinator=host:port"
         )
     device = pick_device(kw)
-    run_batch_whole_registration(
-        pos[0],
-        pos[1],
-        report_path=kw.get("report", "./icp_precision_report_3d_icp_directly.txt"),
-        capacity=int_kw(kw, "capacity", None),
-        pair_batch=int_kw(kw, "pair_batch", None),
-        resume=kw.get("resume", "false") == "true",
-        device=device,
-    )
+    devices = devices_kw(kw, device)
+    with process_group(kw, device, devices) as (nproc, pid):
+        run_batch_whole_registration(
+            pos[0],
+            pos[1],
+            report_path=kw.get("report", "./icp_precision_report_3d_icp_directly.txt"),
+            capacity=int_kw(kw, "capacity", None),
+            pair_batch=int_kw(kw, "pair_batch", None),
+            devices=devices,
+            process_id=pid,
+            num_processes=nproc,
+            resume=kw.get("resume", "false") == "true",
+            device=device,
+        )
     return 0
 
 

@@ -129,21 +129,31 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 def profile_calls(fn, reps: int = 50) -> tuple[int, int, dict[str, float]]:
     """What one call of ``fn`` puts on the card, by torch.profiler over
     ``reps`` calls after a warm-up: (kernels, copies and memsets, {kernel,
-    copy or memset name: device ms}), per call.  The counts are rounded: the profiler can
-    miss events of a window (it never adds one), and it can come back with
-    none at all.  So a window whose device events are not a whole number a
-    call is taken again, up to three times, and the fullest one is kept."""
-    from torch.profiler import ProfilerActivity, profile
+    copy or memset name: device ms}), per call.  Only the device events that
+    start inside the span of the calls (a ``record_function`` around them,
+    ended after a synchronize) are the calls' own: an event of an earlier
+    window that the profiler hands over late is not counted.  The profiler
+    can also miss events of a window, and come back with none at all, so a
+    window whose events are not a whole number a call is taken again, up to
+    four times, and the fullest one is kept; the counts are rounded."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
     torch.cuda.synchronize()
     events: list = []
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        window = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function("profile_calls"):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+        listed = prof.events()
+        cuda = torch.autograd.DeviceType.CUDA
+        span = next(e.time_range for e in listed
+                    if e.name == "profile_calls" and e.device_type != cuda)
+        # the span's own mark on the card's timeline is no event of the calls
+        window = [e for e in listed if e.device_type == cuda and e.name != "profile_calls"
+                  and span.start <= e.time_range.start <= span.end]
         if len(window) > len(events):
             events = window
         if window and len(window) % reps == 0:

@@ -127,11 +127,18 @@ def _ascii_value(v) -> str:
 
 
 def _lzf_decompress(data: bytes, expected_size: int) -> bytes:
-    """liblzf decompression (the PCD binary_compressed codec), pure Python.
+    """liblzf decompression (the PCD binary_compressed codec).
 
     Control byte < 32 ⇒ literal run of ctrl+1 bytes; otherwise a back
     reference: length = (ctrl >> 5) (+ext byte when 7) + 2, offset =
-    ((ctrl & 0x1f) << 8 | next byte) + 1."""
+    ((ctrl & 0x1f) << 8 | next byte) + 1.  Decodes through the native
+    library (``runtime.native_io``) when it is available; this pure-Python
+    path is the fallback."""
+    from pctpu_torch.runtime.native_io import lzf_decompress as _native_lzf
+
+    native = _native_lzf(data, expected_size)
+    if native is not None:
+        return native
     out = bytearray(expected_size)
     i, o, nin = 0, 0, len(data)
     while i < nin:

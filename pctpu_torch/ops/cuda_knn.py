@@ -130,11 +130,22 @@ def gather_points(x: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
     return torch.take_along_dim(x, order if x.dim() == order.dim() else order[..., None], axis)
 
 
+def _morton_order(xyz: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return torch.sort(morton_sort_key(xyz, mask), dim=-1, stable=True).indices
+
+
+def spatial_sort(xyz: torch.Tensor, mask: torch.Tensor):
+    """Stable sort of points by Morton code (pctpu's ``spatial_sort``):
+    (xyz_sorted, mask_sorted, order int32), ``xyz_sorted = xyz[order]``."""
+    order = _morton_order(xyz, mask)
+    return gather_points(xyz, order), gather_points(mask, order), order.to(torch.int32)
+
+
 def spatial_sort_payload(xyz: torch.Tensor, mask: torch.Tensor, *extras):
     """Stable Morton sort carrying payload tensors (indexed on the point
     axis) along, of one cloud (N, 3) or each cloud of a batch (P, N, 3).
     Returns (xyz_s, mask_s, *extras_s)."""
-    order = torch.sort(morton_sort_key(xyz, mask), dim=-1, stable=True).indices
+    order = _morton_order(xyz, mask)
     return tuple(gather_points(x, order) for x in (xyz, mask, *extras))
 
 

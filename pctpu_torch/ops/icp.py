@@ -25,7 +25,9 @@ state; here the freeze is a ``torch.where`` on a (P,) ``done`` tensor, and
 the host reads the count of done problems once an iteration of the whole
 batch.  Every op of the body is per problem, so a problem's result does not
 depend on the others (on the CPU, bit for bit, up to the reduction splits
-README's D5 row names).  :func:`icp` and its two forms are the P = 1 case;
+README's D5 row names; on the card the sums over the point axis run in f64,
+rounded once, and a problem's bits were observed not to hang on the batch's
+size, which f64 sums in another order make likely, not certain).  :func:`icp` and its two forms are the P = 1 case;
 :func:`icp_trace` runs the body a fixed ``max(max_iterations, 1)`` steps
 with no host read and returns each step's state.
 
@@ -33,12 +35,16 @@ The NN search is the bbox-pruned CUDA kernel over Morton-sorted clouds for
 CUDA tensors (one problem: ``nn_1_pruned``; a batch: ``nn_1_pruned_batched``,
 one prepared target each) and the blocked brute force ``nn_1`` for CPU
 tensors, one problem after another (as pctpu runs its Pallas kernel on the
-TPU and the XLA path elsewhere).
+TPU and the XLA path elsewhere).  ``nn_impl="sharded"`` splits each target
+over a mesh's ``points`` axis (``parallel.mesh.sharded_nn_1``: ``nn_1`` on
+each slice, the winners reduced over the slices), as pctpu's point-axis
+scaling does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -79,17 +85,42 @@ class IcpResult:
         return IcpResult(self.converged[index], self.fitness[index], self.transform[index])
 
 
+def _point_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the point axis (dim 1) of a batch of problems.  On the card
+    it runs in f64 and is rounded once to f32: torch's f32 sum over a
+    non-innermost axis splits its work by the number of outputs, and
+    measured on an H100 a problem summed in a batch of 8 rounded otherwise
+    than in a batch of 16, which a data mesh's shards would show as other
+    reports.  The f64 sum also splits by the batch, but its error is far
+    below one f32 rounding, so the f32 result agreed across batch sizes
+    wherever it was compared; two f64 sums that straddle an f32 rounding
+    boundary would still round apart, so that is observed, not guaranteed.
+    On the CPU it stays f32, pctpu's order (README D5)."""
+    if x.device.type == "cuda":
+        return x.double().sum(dim=1).float()
+    return x.sum(dim=1)
+
+
+def _point_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.bmm(a, b)`` whose inner dimension is the point axis, on the
+    card in f64 rounded once to f32, as :func:`_point_sum` (cuBLAS picks
+    its splits by shape and batch size)."""
+    if a.device.type == "cuda":
+        return torch.bmm(a.double(), b.double()).float()
+    return torch.bmm(a, b)
+
+
 def _estimate_svd(src, tgt, w):
     """Umeyama (no scale), weighted by w∈{0,1} — PCL
     TransformationEstimationSVD on the correspondence subset, per problem of
     (P, N, 3) points.  The SVD's sign convention does not matter: R = V·S·Uᵀ
     with S = diag(1, 1, sign det) is invariant to it."""
     wsum = torch.clamp_min(w.sum(dim=1), 1.0)[:, None]
-    mu_s = (src * w[..., None]).sum(dim=1) / wsum
-    mu_t = (tgt * w[..., None]).sum(dim=1) / wsum
+    mu_s = _point_sum(src * w[..., None]) / wsum
+    mu_t = _point_sum(tgt * w[..., None]) / wsum
     sd = (src - mu_s[:, None]) * w[..., None]
     td = tgt - mu_t[:, None]
-    h = torch.bmm(sd.transpose(1, 2), td)  # (P, 3, 3)
+    h = _point_bmm(sd.transpose(1, 2), td)  # (P, 3, 3)
     u, _, vt = torch.linalg.svd(h)
     v, ut = vt.transpose(1, 2), u.transpose(1, 2)
     d = torch.sign(torch.linalg.det(torch.bmm(v, ut)))
@@ -109,8 +140,8 @@ def _estimate_point_to_plane_lls(src, tgt, nrm, w):
     jac = torch.cat([a, nrm], dim=-1) * w[..., None]  # (P, N, 6)
     b = (nrm * (tgt - src)).sum(dim=-1) * w
     jt = jac.transpose(1, 2)
-    ata = torch.bmm(jt, jac)
-    atb = torch.bmm(jt, b[..., None])[..., 0]
+    ata = _point_bmm(jt, jac)
+    atb = _point_bmm(jt, b[..., None])[..., 0]
     eye = torch.eye(6, dtype=torch.float32, device=src.device)
     # solve_ex: a singular system yields non-finite values (as in pctpu,
     # where the < 3-correspondence gate then discards them) instead of a
@@ -129,7 +160,7 @@ def _estimate_point_to_plane_lls(src, tgt, nrm, w):
     ], dim=-2)
 
 
-def _searches(src_mask, tgt_xyz, corr_mask, fit_mask, per, cfg, nn_impl, nn_tile):
+def _searches(src_mask, tgt_xyz, corr_mask, fit_mask, per, cfg, nn_impl, nn_tile, mesh):
     """(nn_corr, nn_fit): each maps transformed sources (P, N, 3) to
     (index (P, N) int64, d² (P, N)) against each problem's target, under
     the correspondence mask within the threshold, or the plain mask without
@@ -157,9 +188,16 @@ def _searches(src_mask, tgt_xyz, corr_mask, fit_mask, per, cfg, nn_impl, nn_tile
         return (lambda q: search(q, corr_prep, cfg.max_correspondence_distance),
                 lambda q: search(q, fit_prep, None))
 
+    if nn_impl == "sharded":
+        from pctpu_torch.parallel.mesh import sharded_nn_1
+
+        search = sharded_nn_1(mesh, tile=nn_tile)
+    else:
+        search = functools.partial(nn_1, tile=nn_tile)
+
     def brute(mask):
         def run(q):
-            outs = [nn_1(q[k], src_mask[k], tgt_xyz[k // per], mask[k // per], tile=nn_tile)
+            outs = [search(q[k], src_mask[k], tgt_xyz[k // per], mask[k // per])
                     for k in range(p)]
             return (torch.stack([o[0] for o in outs]).to(torch.int64),
                     torch.stack([o[1] for o in outs]))
@@ -169,13 +207,16 @@ def _searches(src_mask, tgt_xyz, corr_mask, fit_mask, per, cfg, nn_impl, nn_tile
 
 
 def _run(src_xyz, src_mask, tgt_xyz, tgt_mask, guess, cfg: IcpConfig, tgt_normals,
-         normal_mask, nn_tile, nn_impl, trace: bool):
+         normal_mask, nn_tile, nn_impl, trace: bool, mesh=None):
     """The batched body (module docstring).  Returns (IcpResult of (P,)
     fields, the per-step trace or None)."""
     if nn_impl == "auto":
         nn_impl = "pruned" if src_xyz.device.type == "cuda" else "xla"
-    if nn_impl not in ("pruned", "xla"):
-        raise ValueError(f"nn_impl must be 'auto', 'pruned' or 'xla', got {nn_impl!r}")
+    if nn_impl not in ("pruned", "xla", "sharded"):
+        raise ValueError(
+            f"nn_impl must be 'auto', 'pruned', 'xla' or 'sharded', got {nn_impl!r}")
+    if nn_impl == "sharded" and mesh is None:
+        raise ValueError("nn_impl='sharded' needs a mesh with a 'points' axis")
     n_problems, n_targets = src_xyz.shape[0], tgt_xyz.shape[0]
     if n_targets == 0 or n_problems % n_targets:
         raise ValueError(f"icp: {n_problems} problems for {n_targets} targets")
@@ -204,7 +245,7 @@ def _run(src_xyz, src_mask, tgt_xyz, tgt_mask, guess, cfg: IcpConfig, tgt_normal
     if tgt_normals is not None and normal_mask is not None:
         corr_mask = tgt_mask & normal_mask
     nn_corr, nn_fit = _searches(src_mask, tgt_xyz, corr_mask, tgt_mask, per, cfg, nn_impl,
-                                nn_tile)
+                                nn_tile, mesh)
     # each problem's target (and normals), for the gathers
     owner = torch.arange(n_problems, device=dev) // per
     tgt_p = tgt_xyz if per == 1 else tgt_xyz[owner]
@@ -245,7 +286,7 @@ def _run(src_xyz, src_mask, tgt_xyz, tgt_mask, guess, cfg: IcpConfig, tgt_normal
         trans_sqr = (inc[:, :3, 3] ** 2).sum(dim=-1)
         delta_small = (cos_angle >= rot_thresh) & (trans_sqr <= eps_t)
         # where(), not d2 * w: out-of-threshold queries carry +inf
-        mse = torch.where(wb, d2, 0.0).sum(dim=1) / torch.clamp_min(ncorr, 1.0)
+        mse = _point_sum(torch.where(wb, d2, 0.0)) / torch.clamp_min(ncorr, 1.0)
         diff = torch.abs(mse - prev_mse)
         mse_abs_ok = diff < 1e-12
         mse_rel_ok = diff / torch.clamp_min(prev_mse, 1e-30) < rel_mse
@@ -287,7 +328,7 @@ def _run(src_xyz, src_mask, tgt_xyz, tgt_mask, guess, cfg: IcpConfig, tgt_normal
     nsrc = src_mask.to(torch.float32).sum(dim=1)
     fitness = torch.where(
         nsrc > 0,
-        torch.where(src_mask, d2, 0.0).sum(dim=1) / torch.clamp_min(nsrc, 1.0),
+        _point_sum(torch.where(src_mask, d2, 0.0)) / torch.clamp_min(nsrc, 1.0),
         # getFitnessScore returns numeric_limits<double>::max() for no
         # accepted points — f32 max here (both clear the 1.5 failure gate)
         _F32_MAX,
@@ -310,6 +351,7 @@ def icp_batched(
     normal_mask: torch.Tensor | None = None,
     nn_tile: int = 512,
     nn_impl: str = "auto",
+    mesh=None,
 ) -> IcpResult:
     """P ICP alignments at once: sources ``src_xyz`` (P, N, 3) with masks
     (P, N) and guesses (P, 4, 4), targets ``tgt_xyz`` (Bt, T, 3) with masks
@@ -318,7 +360,7 @@ def icp_batched(
     :class:`IcpResult` of (P,) fields, each problem's what :func:`icp` gives
     it alone."""
     return _run(src_xyz, src_mask, tgt_xyz, tgt_mask, guess, cfg, tgt_normals, normal_mask,
-                nn_tile, nn_impl, trace=False)[0]
+                nn_tile, nn_impl, trace=False, mesh=mesh)[0]
 
 
 def _one(x):
@@ -336,6 +378,7 @@ def icp(
     normal_mask: torch.Tensor | None = None,
     nn_tile: int = 512,
     nn_impl: str = "auto",
+    mesh=None,
 ) -> IcpResult:
     """Run one ICP alignment.  All tensors fixed-size with validity masks,
     on one device.
@@ -346,11 +389,12 @@ def icp(
 
     ``nn_impl``: "pruned" (bbox-pruned 1-NN over Morton-sorted clouds: the
     CUDA kernel on a card, its plain twin on the CPU), "xla" (pctpu's name
-    for the blocked brute force ``nn_1``), or "auto" (pruned for CUDA
+    for the blocked brute force ``nn_1``), "sharded" (``nn_1`` over the
+    target split along ``mesh``'s 'points' axis), or "auto" (pruned for CUDA
     tensors, brute force for CPU tensors)."""
     return icp_batched(src_xyz[None], src_mask[None], tgt_xyz[None], tgt_mask[None],
                        guess[None], cfg, _one(tgt_normals), _one(normal_mask), nn_tile,
-                       nn_impl).select(0)
+                       nn_impl, mesh).select(0)
 
 
 def icp_trace(
@@ -368,9 +412,9 @@ def icp_trace(
 
 
 def icp_point_to_point(src_xyz, src_mask, tgt_xyz, tgt_mask, guess, cfg: IcpConfig,
-                       nn_tile: int = 512, nn_impl: str = "auto") -> IcpResult:
+                       nn_tile: int = 512, nn_impl: str = "auto", mesh=None) -> IcpResult:
     return icp(src_xyz, src_mask, tgt_xyz, tgt_mask, guess, cfg,
-               nn_tile=nn_tile, nn_impl=nn_impl)
+               nn_tile=nn_tile, nn_impl=nn_impl, mesh=mesh)
 
 
 def icp_point_to_plane(

@@ -56,9 +56,17 @@ def nn_1(
 
     Returns (index (Q,) int32, squared distance (Q,) f32); masked-out
     targets are +inf away, masked-out queries return +inf."""
+    return nn_1_scored(query, query_mask, target, target_mask, tile)[:2]
+
+
+def nn_1_scored(query, query_mask, target, target_mask, tile: int = 512):
+    """:func:`nn_1` plus each winner's score (|q|² − 2q·t + |t|², the value
+    the argmin ranks): (index, squared distance, score).  Winners of slices
+    of the target, reduced by their scores with the lowest slice winning a
+    tie, are the whole target's winners."""
     inf = torch.tensor(float("inf"), device=query.device)
     t_sq = torch.where(target_mask, (target * target).sum(dim=1), inf)
-    idxs, dists = [], []
+    idxs, dists, scores = [], [], []
     for s in range(0, query.shape[0], tile):
         qt = query[s : s + tile]
         qm = query_mask[s : s + tile]
@@ -67,7 +75,8 @@ def nn_1(
         best = sq_dist(qt - target[idx])
         idxs.append(idx.to(torch.int32))
         dists.append(torch.where(qm & target_mask[idx], best, inf))
-    return torch.cat(idxs), torch.cat(dists)
+        scores.append(d.gather(1, idx[:, None])[:, 0])
+    return torch.cat(idxs), torch.cat(dists), torch.cat(scores)
 
 
 # pctpu's jitted name for nn_1; torch runs eagerly, so it is the same function

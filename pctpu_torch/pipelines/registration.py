@@ -22,6 +22,17 @@ B = 1 case; ``register_pairs``, ``register_pairs_pipelined`` and
 ``register_whole_pairs`` are pctpu's pair-batched drivers, and the ``run_*``
 drivers take ``pair_batch`` (default 16 on a CUDA device, 1 on the CPU).
 
+A batch is a list of data shards, each on its own device: one without a
+mesh; with one (``mesh=``, ``--devices``), the pair axis split over its data
+devices.  The shards' buckets are the whole batch's (the largest counts over
+every shard), so a pair's result does not depend on the split.  The shards
+run one after the other in the calling thread, each under its device: on a
+logical mesh of one card that is all there is to it, and on distinct cards
+a shard's ICP loop, which reads the host once an iteration, does not
+overlap the next shard's.  The ``run_*`` drivers also split the match list
+over processes (``process_id``, ``num_processes``): each writes
+``<report>.shard<pid>``.
+
 The stage inputs are cut to capacity buckets (a power of two for the flat
 clouds, a multiple of 8,192 for the full ones), taken from the batch's
 largest counts, as pctpu does: results depend on the padded width through
@@ -51,8 +62,13 @@ from pctpu_torch.ops.icp import IcpResult, icp_batched, icp_point_to_point
 from pctpu_torch.ops.normals2d import normals_2d
 from pctpu_torch.ops.topflatten import extract_top_and_flatten
 from pctpu_torch.ops.voxel import voxel_downsample
+from pctpu_torch.parallel.distributed import process_count, process_index, process_shard
+from pctpu_torch.parallel.mesh import Mesh, cloud_to, data_slices, device_guard, make_mesh
 from pctpu_torch.runtime.profiler import StageTimer
 from pctpu_torch.utils import logging as log
+
+# one data shard of a pair batch: (cloud_1 batch, cloud_2 batch, guesses)
+Shard = tuple[Cloud, Cloud, torch.Tensor]
 
 
 @dataclasses.dataclass
@@ -201,18 +217,56 @@ def _stage_voxel_full(c1: Cloud, c2: Cloud, leaf: float):
 
 
 def _stage_fine(s_xyz, s_mask, t_xyz, t_mask, guesses, cfg: RegistrationConfig,
-                bucket: int) -> IcpResult:
+                bucket: int, point_mesh: Mesh | None = None) -> IcpResult:
     return icp_batched(s_xyz[:, :bucket], s_mask[:, :bucket], t_xyz[:, :bucket],
-                       t_mask[:, :bucket], guesses, cfg.fine)
+                       t_mask[:, :bucket], guesses, cfg.fine,
+                       nn_impl="auto" if point_mesh is None else "sharded", mesh=point_mesh)
 
 
-def _stack_pairs(pairs) -> tuple[Cloud, Cloud, torch.Tensor]:
-    """(cloud_1 batch, cloud_2 batch, the two guesses (B, 2, 4, 4)) of
+def _stack_pairs(pairs, guess_fn) -> Shard:
+    """(cloud_1 batch, cloud_2 batch, each pair's ``guess_fn(yaw)``) of
     (cloud_1, cloud_2, yaw guess) pairs on one device."""
     c1 = stack_clouds([p[0] for p in pairs])
     c2 = stack_clouds([p[1] for p in pairs])
-    guesses = torch.from_numpy(np.stack([_guess_pair_np(p[2]) for p in pairs])).to(c1.device)
+    guesses = torch.from_numpy(np.stack([guess_fn(p[2]) for p in pairs])).to(c1.device)
     return c1, c2, guesses
+
+
+def _whole_guess_np(angle_guess_deg: float) -> np.ndarray:
+    return yaw_rotation_4x4(_guess_angle_rad(angle_guess_deg)).astype(np.float32)
+
+
+def _shard_pairs(pairs, mesh: Mesh | None, guess_fn=_guess_pair_np) -> list[Shard]:
+    """A pair batch as shards (module docstring): one on the pairs' device
+    without a mesh, else the pair axis split over the mesh's data devices,
+    each shard stacked and moved to its device."""
+    if mesh is None:
+        return [_stack_pairs(pairs, guess_fn)]
+    return [tuple(cloud_to(x, dev) if isinstance(x, Cloud) else x.to(dev)
+                  for x in _stack_pairs(pairs[rows], guess_fn))
+            for rows, dev in data_slices(len(pairs), mesh, "len(pairs)")]
+
+
+def _on_shards(shards: list[Shard], fn, *columns) -> list:
+    """``fn(shard, *row)`` for each shard and its row of ``columns``, under
+    the shard's device."""
+    out = []
+    for shard, *row in zip(shards, *columns):
+        with device_guard(shard[0].device):
+            out.append(fn(shard, *row))
+    return out
+
+
+def _batch_max(stats: list[torch.Tensor]) -> list:
+    """Each stat's largest value over the shards (one host read a shard):
+    the buckets of a sharded batch are those of the whole batch."""
+    return [max(col) for col in zip(*(s.tolist() for s in stats))]
+
+
+def _synchronize(shards: list[Shard]) -> None:
+    for dev in {s[0].device for s in shards}:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 def _flat_stats(s, t, nk_raw) -> torch.Tensor:
@@ -227,6 +281,32 @@ def _coarse_bucket(stats: list, flat_cap: int) -> int:
     return _pow2_bucket(max(n_s, n_t), flat_cap)
 
 
+def _fine_bucket_for(n: int, capacity: int, point_mesh: Mesh | None) -> int:
+    """The fine bucket; with a point mesh, rounded up so the 'points' axis
+    divides it (pctpu's capacity check and rounding)."""
+    fbucket = _fine_bucket(n, capacity)
+    if point_mesh is not None:
+        n_pts = point_mesh.shape["points"]
+        if capacity % n_pts:
+            raise ValueError(
+                f"point_mesh needs cloud capacity ({capacity}) to "
+                f"be a multiple of the 'points' axis ({n_pts})"
+            )
+        fbucket = -(-fbucket // n_pts) * n_pts
+    return fbucket
+
+
+def _transforms(results: list[IcpResult]) -> list[torch.Tensor]:
+    return [r.transform for r in results]
+
+
+def _join(results: list[IcpResult]) -> IcpResult:
+    """The shards' results as one host numpy IcpResult, in pair order."""
+    parts = [r.numpy() for r in results]
+    return IcpResult(*(np.concatenate([getattr(p, f) for p in parts])
+                       for f in ("converged", "fitness", "transform")))
+
+
 def register_pair(
     cloud_1: Cloud,
     cloud_2: Cloud,
@@ -234,15 +314,23 @@ def register_pair(
     cfg: RegistrationConfig = RegistrationConfig(),
     flat_cap: int = 32768,
     timer: StageTimer | None = None,
+    point_mesh: Mesh | None = None,
 ) -> tuple[IcpResult, IcpResult | None]:
     """Returns (best coarse IcpResult, fine IcpResult or None) as host numpy
     values: :func:`register_pairs` of this one pair.  Both clouds must lie on
     one device; the work runs there.
 
+    ``point_mesh`` (a mesh with a 'points' axis) splits the fine stage's
+    correspondence search over the target's points (``nn_impl="sharded"``),
+    the fine bucket rounded up to a multiple of that axis.
+
     "coarse" times flat prep + normals + both coarse ICPs, "fine" the
     full-cloud voxel + fine ICP (BatchTopPartRegistration.cpp:471-506); each
     stage ends on the host, so the numbers are measured, not apportioned."""
-    return register_pairs([(cloud_1, cloud_2, angle_guess_deg)], cfg, flat_cap, timer)[0]
+    timer = timer or StageTimer()
+    shards = _shard_pairs([(cloud_1, cloud_2, angle_guess_deg)], None)
+    best = _coarse_stage_batched(shards, cfg, flat_cap, timer)
+    return _pair_results(1, shards, best, cfg, timer, point_mesh=point_mesh)[0]
 
 
 def register_pairs(
@@ -250,40 +338,45 @@ def register_pairs(
     cfg: RegistrationConfig = RegistrationConfig(),
     flat_cap: int = 32768,
     timer: StageTimer | None = None,
+    mesh: Mesh | None = None,
 ) -> list[tuple[IcpResult, IcpResult | None]]:
     """Batch several (cloud_1, cloud_2, yaw_guess_deg) pairs: each stage runs
     once over the pair axis, with capacity buckets chosen from the batch
     maxima.  Returns a list of (best coarse, fine or None) numpy IcpResults
-    in input order.  All clouds must share one capacity and device."""
+    in input order.  All clouds must share one capacity and device.  With
+    ``mesh`` the pair axis is split over its data devices (len(pairs) a
+    multiple of them); the results are the unsharded run's."""
     timer = timer or StageTimer()
-    c1, c2, best = _coarse_stage_batched(pairs, cfg, flat_cap, timer)
-    return _pair_results(len(pairs), c1, c2, best, cfg, timer)
+    shards = _shard_pairs(pairs, mesh)
+    best = _coarse_stage_batched(shards, cfg, flat_cap, timer)
+    return _pair_results(len(pairs), shards, best, cfg, timer)
 
 
-def _pair_results(n, c1, c2, best_dev, cfg, timer, spec=None):
-    """Coarse winners (still on the device) → per-pair (best coarse,
+def _pair_results(n, shards, best, cfg, timer, spec=None, point_mesh=None):
+    """Coarse winners (still on the devices) → per-pair (best coarse,
     fine-or-None) numpy tuples: the tail shared by ``register_pairs`` and
-    the pipelined stream.  The fine stage seeds from the device-resident
+    ``register_pair``.  The fine stage seeds from the device-resident
     coarse transforms."""
-    fine_dev = (
-        _fine_dispatch(c1, c2, best_dev.transform, cfg, timer, spec=spec)
+    fine = (
+        _fine_dispatch(shards, _transforms(best), cfg, timer, spec=spec, point_mesh=point_mesh)
         if cfg.use_refinement
         else None
     )
-    return _fetch_pair_results(n, best_dev, fine_dev, timer)
+    return _fetch_pair_results(n, best, fine, timer)
 
 
-def _fetch_pair_results(n, best_dev, fine_dev, timer):
-    """Bring a batch's results to the host and split them per pair.  The
-    fetch spans extend the stage totals with items=0, so they do not count
-    the pairs twice in the per-pair averages."""
-    fine = None
-    if fine_dev is not None:
+def _fetch_pair_results(n, best, fine, timer):
+    """Bring a batch's results (one IcpResult a shard) to the host and
+    split them per pair.  The fetch spans extend the stage totals with
+    items=0, so they do not count the pairs twice in the per-pair
+    averages."""
+    fine_h = None
+    if fine is not None:
         with timer.stage("fine", items=0):
-            fine = fine_dev.numpy()
+            fine_h = _join(fine)
     with timer.stage("coarse", items=0):
-        best = best_dev.numpy()
-    return [(best.select(i), None if fine is None else fine.select(i)) for i in range(n)]
+        best_h = _join(best)
+    return [(best_h.select(i), None if fine_h is None else fine_h.select(i)) for i in range(n)]
 
 
 class BucketSpec:
@@ -316,54 +409,74 @@ class BucketSpec:
         return False
 
 
-def _coarse_stage_batched(pairs, cfg, flat_cap, timer, spec=None):
-    """Stack + flat prep + both coarse ICPs for one pair batch (the
-    reference's 1st-stage span).  Returns (c1, c2, best) with the coarse
-    winners still on the device.  With ``spec`` the coarse ICP first runs at
-    the previous batch's bucket (:class:`BucketSpec`)."""
-    c1, c2, guesses = _stack_pairs(pairs)
-    with timer.stage("coarse", items=len(pairs)):
-        s, t, nk_raw = _stage_flat(c1, c2, flat_cap, cfg.voxel_leaf)
-        stats = _flat_stats(s, t, nk_raw)
+def _flat(shards, cfg, flat_cap):
+    return _on_shards(shards, lambda sh: _stage_flat(sh[0], sh[1], flat_cap, cfg.voxel_leaf))
 
-        def run_coarse(bucket):
-            return _stage_coarse(s[0], s[1], t[0], t[1], guesses, cfg, bucket)
 
+def _coarse_runner(shards, flats, cfg):
+    """bucket → the coarse winners of every shard at that bucket."""
+    def run(bucket):
+        return _on_shards(shards, lambda sh, f: _stage_coarse(
+            f[0][0], f[0][1], f[1][0], f[1][1], sh[2], cfg, bucket), flats)
+    return run
+
+
+def _fine_runner(shards, voxels, cfg, point_mesh=None):
+    """(bucket, guesses a shard) → the fine results of every shard."""
+    stage = _stage_fine if point_mesh is None else functools.partial(
+        _stage_fine, point_mesh=point_mesh)
+
+    def run(fbucket, guesses):
+        return _on_shards(shards, lambda sh, v, g: stage(
+            v[0][0], v[0][1], v[1][0], v[1][1], g, cfg, fbucket), voxels, guesses)
+    return run
+
+
+def _coarse_stage_batched(shards, cfg, flat_cap, timer, spec=None):
+    """Flat prep + both coarse ICPs for one pair batch (the reference's
+    1st-stage span).  Returns the coarse winners of each shard, still on
+    the devices.  With ``spec`` the coarse ICP first runs at the previous
+    batch's bucket (:class:`BucketSpec`)."""
+    with timer.stage("coarse", items=sum(sh[0].xyz.shape[0] for sh in shards)):
+        flats = _flat(shards, cfg, flat_cap)
+        stats = [_flat_stats(*f) for f in flats]
+        run_coarse = _coarse_runner(shards, flats, cfg)
         predicted = spec.coarse if spec is not None else None
         best = run_coarse(predicted) if predicted is not None else None
-        bucket = _coarse_bucket(stats.tolist(), flat_cap)
+        bucket = _coarse_bucket(_batch_max(stats), flat_cap)
         if spec is not None:
             spec.coarse = bucket
         if spec is None or not spec.record(predicted, bucket):
             best = run_coarse(bucket)
-    return c1, c2, best
+    return best
 
 
-def _fine_dispatch(c1, c2, guesses, cfg, timer, spec=None):
-    """Full-cloud voxel of every pair + one stats read + the bucketed fine
-    ICP batch, shared by the top-part fine stage (guesses = the coarse
-    winners' transforms, on the device) and the whole-cloud ablation
-    (guesses = the yaw rotations).  ``spec`` runs the fine ICP first at the
-    previous batch's fine bucket.  Returns the fine IcpResult batch on the
-    device."""
-    with timer.stage("fine", items=int(guesses.shape[0])):
-        a, b = _stage_voxel_full(c1, c2, cfg.voxel_leaf)
-        stats = torch.stack([a[2].max(), b[2].max()])
+def _voxels(shards, cfg):
+    voxels = _on_shards(shards, lambda sh: _stage_voxel_full(sh[0], sh[1], cfg.voxel_leaf))
+    return voxels, [torch.stack([a[2].max(), b[2].max()]) for a, b in voxels]
 
-        def run_fine(fbucket):
-            return _stage_fine(a[0], a[1], b[0], b[1], guesses, cfg, fbucket)
 
+def _fine_dispatch(shards, guesses, cfg, timer, spec=None, point_mesh=None):
+    """Full-cloud voxel of every pair + one stats read a shard + the
+    bucketed fine ICP batch, shared by the top-part fine stage (guesses =
+    the coarse winners' transforms, on the devices) and the whole-cloud
+    ablation (guesses = the yaw rotations).  ``spec`` runs the fine ICP
+    first at the previous batch's fine bucket.  Returns the fine results of
+    each shard, on the devices."""
+    with timer.stage("fine", items=sum(int(g.shape[0]) for g in guesses)):
+        voxels, stats = _voxels(shards, cfg)
+        run_fine = _fine_runner(shards, voxels, cfg, point_mesh)
         predicted = spec.fine if spec is not None else None
-        fine = run_fine(predicted) if predicted is not None else None
-        fbucket = _fine_bucket(max(stats.tolist()), c1.capacity)
+        fine = run_fine(predicted, guesses) if predicted is not None else None
+        fbucket = _fine_bucket_for(max(_batch_max(stats)), shards[0][0].capacity, point_mesh)
         if spec is not None:
             spec.fine = fbucket
         if spec is None or not spec.record(predicted, fbucket):
-            fine = run_fine(fbucket)
+            fine = run_fine(fbucket, guesses)
     return fine
 
 
-def _dispatch_batch_speculative(pairs, cfg, flat_cap, timer, spec: BucketSpec):
+def _dispatch_batch_speculative(pairs, cfg, flat_cap, timer, spec: BucketSpec, mesh=None):
     """One batch's whole chain — flat, coarse, voxel, fine — at the previous
     batch's buckets, then the two stats reads that verify them (pctpu's,
     registration.py:444-535).  A mispredicted stage, and every stage after it
@@ -371,49 +484,42 @@ def _dispatch_batch_speculative(pairs, cfg, flat_cap, timer, spec: BucketSpec):
     bucket, so results are the plain path's.  Cold starts (no recorded
     buckets) take the plain path, which fills the spec."""
     if spec.coarse is None or spec.fine is None or not cfg.use_refinement:
-        c1, c2, best = _coarse_stage_batched(pairs, cfg, flat_cap, timer, spec=spec)
-        fine = (_fine_dispatch(c1, c2, best.transform, cfg, timer, spec=spec)
+        shards = _shard_pairs(pairs, mesh)
+        best = _coarse_stage_batched(shards, cfg, flat_cap, timer, spec=spec)
+        fine = (_fine_dispatch(shards, _transforms(best), cfg, timer, spec=spec)
                 if cfg.use_refinement else None)
         return len(pairs), best, fine
 
     t0 = time.perf_counter()
-    c1, c2, guesses = _stack_pairs(pairs)
+    shards = _shard_pairs(pairs, mesh)
     n = len(pairs)
-    s, t, nk_raw = _stage_flat(c1, c2, flat_cap, cfg.voxel_leaf)
-    stats = _flat_stats(s, t, nk_raw)
-
-    def run_coarse(bucket):
-        return _stage_coarse(s[0], s[1], t[0], t[1], guesses, cfg, bucket)
-
+    flats = _flat(shards, cfg, flat_cap)
+    stats = [_flat_stats(*f) for f in flats]
+    run_coarse = _coarse_runner(shards, flats, cfg)
     pc = spec.coarse
     best = run_coarse(pc)
     t1 = time.perf_counter()
-    a, b = _stage_voxel_full(c1, c2, cfg.voxel_leaf)
-    stats2 = torch.stack([a[2].max(), b[2].max()])
-
-    def run_fine(fbucket, g):
-        return _stage_fine(a[0], a[1], b[0], b[1], g, cfg, fbucket)
-
+    voxels, stats2 = _voxels(shards, cfg)
+    run_fine = _fine_runner(shards, voxels, cfg)
     pf = spec.fine
-    fine = run_fine(pf, best.transform)
+    fine = run_fine(pf, _transforms(best))
     t2 = time.perf_counter()
 
     # --- verification (the whole chain has run) ------------------------------
-    bucket = _coarse_bucket(stats.tolist(), flat_cap)
+    bucket = _coarse_bucket(_batch_max(stats), flat_cap)
     spec.coarse = bucket
     coarse_ok = spec.record(pc, bucket)
     if not coarse_ok:
         best = run_coarse(bucket)
     t3 = time.perf_counter()
-    fbucket = _fine_bucket(max(stats2.tolist()), c1.capacity)
+    fbucket = _fine_bucket(max(_batch_max(stats2)), shards[0][0].capacity)
     spec.fine = fbucket
     fine_ok = spec.record(pf, fbucket)
     if not (fine_ok and coarse_ok):
         # a coarse mispredict invalidates the speculative fine too: its
         # guesses were the mispredicted coarse winners
-        fine = run_fine(fbucket, best.transform)
-    if torch.cuda.is_initialized():
-        torch.cuda.synchronize()
+        fine = run_fine(fbucket, _transforms(best))
+    _synchronize(shards)
     t4 = time.perf_counter()
     timer.add("coarse", ((t1 - t0) + (t3 - t2)) * 1e3, items=n)
     timer.add("fine", ((t2 - t1) + (t4 - t3)) * 1e3, items=n)
@@ -425,6 +531,7 @@ def register_pairs_pipelined(
     cfg: RegistrationConfig = RegistrationConfig(),
     flat_cap: int = 32768,
     timer: StageTimer | None = None,
+    mesh: Mesh | None = None,
     depth: int = 1,
 ):
     """Software-pipelined batch registration over a stream of pair batches
@@ -435,9 +542,10 @@ def register_pairs_pipelined(
     fine and its stats reads — runs on one worker thread while this thread
     brings batch k's results to the host, and each stage first runs at the
     previous batch's bucket (:class:`BucketSpec`).  ``depth`` (≥ 1) batches
-    may have their chain done beyond the one being fetched.  Per-batch
-    results are ``register_pairs``' at any depth.  Yields one result list per
-    batch, in order."""
+    may have their chain done beyond the one being fetched.  ``mesh`` splits
+    each batch over its data devices, as in :func:`register_pairs`.
+    Per-batch results are ``register_pairs``' at any depth.  Yields one
+    result list per batch, in order."""
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
     timer = timer or StageTimer()
@@ -445,7 +553,7 @@ def register_pairs_pipelined(
     spec = BucketSpec()
 
     def dispatch_half(loader):
-        return _dispatch_batch_speculative(loader(), cfg, flat_cap, timer, spec)
+        return _dispatch_batch_speculative(loader(), cfg, flat_cap, timer, spec, mesh)
 
     with concurrent.futures.ThreadPoolExecutor(max_workers=1) as ex:
         futs = collections.deque()
@@ -461,21 +569,19 @@ def register_whole_pairs(
     pairs: list[tuple[Cloud, Cloud, float]],
     cfg: RegistrationConfig,
     timer: StageTimer | None = None,
+    mesh: Mesh | None = None,
 ) -> list[IcpResult]:
     """Batch several whole-cloud ablation pairs (voxel + direct fine ICP from
     the yaw guess, BatchWholeRegistration.cpp:342-412): both stages once over
     the pair axis, at the fine bucket of the batch's largest voxel count, as
-    pctpu's.  Returns the numpy fine IcpResults in input order."""
+    pctpu's.  ``mesh`` splits the pair axis over its data devices.  Returns
+    the numpy fine IcpResults in input order."""
     timer = timer or StageTimer()
-    c1 = stack_clouds([p[0] for p in pairs])
-    c2 = stack_clouds([p[1] for p in pairs])
-    guesses = torch.from_numpy(np.stack([
-        yaw_rotation_4x4(_guess_angle_rad(p[2])).astype(np.float32) for p in pairs
-    ])).to(c1.device)
-    fine_dev = _fine_dispatch(c1, c2, guesses, cfg, timer)
+    shards = _shard_pairs(pairs, mesh, _whole_guess_np)
+    fine = _fine_dispatch(shards, [sh[2] for sh in shards], cfg, timer)
     with timer.stage("fine", items=0):
-        fine = fine_dev.numpy()
-    return [fine.select(i) for i in range(len(pairs))]
+        fine_h = _join(fine)
+    return [fine_h.select(i) for i in range(len(pairs))]
 
 
 def _rotmat_to_euler_f32(r: np.ndarray) -> np.ndarray:
@@ -548,25 +654,35 @@ def default_pair_batch(device: torch.device | str = "cuda") -> int:
 
 def _prepare_batch_driver(match_results_filename, point_cloud_dir, report_path, capacity,
                           pair_batch, devices, process_id, num_processes, resume, device):
-    """The shared preamble of the two drivers: refuse the unported
-    multi-device and multi-process options (ROADMAP item 14), resolve
-    ``pair_batch``, load the match list, derive the shared capacity from the
-    FULL list's PCD headers (so a resumed run pads like the run it
-    continues), then filter resumed pairs.  Returns (matches, report mode,
-    capacity, pair_batch)."""
-    if devices not in (None, 1) or num_processes not in (None, 1) or process_id not in (None, 0):
-        raise NotImplementedError(
-            "pctpu_torch runs on one device in one process: devices, num_processes and "
-            "process_id are not ported")
+    """The shared preamble of the two drivers: resolve ``pair_batch``, load
+    the match list and take this process's strided share of it (writing
+    ``<report_path>.shard<pid>`` when there are several processes), derive
+    the shared capacity from that share's FULL list of PCD headers (so a
+    resumed run pads like the run it continues), filter resumed pairs, and
+    build the data mesh of ``devices`` (N CUDA cards, or the CPU N times),
+    rounding ``pair_batch`` up to a multiple of it.  Returns (matches,
+    report path, report mode, capacity, pair_batch, mesh)."""
+    device = torch.device(device)
     if pair_batch is None:
         pair_batch = default_pair_batch(device)
-        log.info(f"pair_batch auto-selected for {torch.device(device).type}: {pair_batch}")
+        log.info(f"pair_batch auto-selected for {device.type}: {pair_batch}")
     matches = load_match_results(match_results_filename)
+    pid = process_index() if process_id is None else process_id
+    nproc = process_count() if num_processes is None else num_processes
+    if nproc > 1:
+        matches = process_shard(matches, pid, nproc)
+        report_path = f"{report_path}.shard{pid}"
     if capacity is None:
         capacity = _auto_capacity(matches, point_cloud_dir)
         log.info(f"capacity auto-derived from headers: {capacity}")
     matches, report_mode = _filter_resumed(matches, report_path, resume)
-    return matches, report_mode, capacity, pair_batch
+    mesh = None
+    if devices is not None and devices > 1:
+        mesh = make_mesh(n_data=devices,
+                         devices=None if device.type == "cuda" else [device] * devices)
+        if pair_batch % devices:
+            pair_batch = -(-pair_batch // devices) * devices
+    return matches, report_path, report_mode, capacity, pair_batch, mesh
 
 
 def _chunks(matches, pair_batch: int):
@@ -625,12 +741,17 @@ def run_batch_top_part_registration(
     the CPU; 1 runs one pair after another.  When ``capacity`` is None a
     shared one is derived from the PCD headers of the full match list.
     ``resume=True`` skips pairs listed in the ``<report_path>.progress``
-    sidecar and appends to the report.  ``devices``, ``process_id`` and
-    ``num_processes`` above one device or process are not ported and
-    raise."""
-    matches, report_mode, capacity, pair_batch = _prepare_batch_driver(
+    sidecar and appends to the report.
+
+    ``devices=N`` splits every pair batch over an N-way data mesh
+    (``pair_batch`` rounded up to a multiple of N); ``process_id`` /
+    ``num_processes`` give each process a strided share of the match list
+    and its own ``<report_path>.shard<pid>`` and summary."""
+    matches, report_path, report_mode, capacity, pair_batch, mesh = _prepare_batch_driver(
         match_results_filename, point_cloud_dir, report_path, capacity, pair_batch, devices,
         process_id, num_processes, resume, device)
+    if mesh is not None:
+        device = mesh.data_devices[0]
     timer = StageTimer()
     reports: list[PairReport] = []
     count_success = 0
@@ -652,7 +773,7 @@ def run_batch_top_part_registration(
         stream = register_pairs_pipelined(
             (functools.partial(_load_pair_chunk, c, point_cloud_dir, capacity, pair_batch,
                                device) for c in chunks),
-            cfg, flat_cap=flat_cap, timer=timer,
+            cfg, flat_cap=flat_cap, timer=timer, mesh=mesh,
         )
         for chunk, results in zip(chunks, stream):
             for m, (best, fine) in zip(chunk, results):
@@ -737,12 +858,16 @@ def run_batch_whole_registration(
 
     ``resume=True`` skips pairs recorded in the ``<report_path>.progress``
     sidecar (the contract of :func:`run_batch_top_part_registration`); the
-    returned and printed counts cover only this invocation's pairs."""
+    returned and printed counts cover only this invocation's pairs.
+    ``devices``, ``process_id`` and ``num_processes`` split the work as in
+    :func:`run_batch_top_part_registration` (an empty report a process)."""
     if cfg is None:
         cfg = RegistrationConfig(fine=WHOLE_ICP)
-    matches, report_mode, capacity, pair_batch = _prepare_batch_driver(
+    matches, report_path, report_mode, capacity, pair_batch, mesh = _prepare_batch_driver(
         match_results_filename, point_cloud_dir, report_path, capacity, pair_batch, devices,
         process_id, num_processes, resume, device)
+    if mesh is not None:
+        device = mesh.data_devices[0]
     timer = StageTimer()
     count_success = 0
     count_failure = 0
@@ -779,7 +904,8 @@ def run_batch_whole_registration(
             for k, chunk in enumerate(chunks):
                 pairs = fut.result()
                 fut = ex.submit(load_chunk, chunks[k + 1]) if k + 1 < len(chunks) else None
-                for m, fine in zip(chunk, register_whole_pairs(pairs, cfg, timer=timer)):
+                for m, fine in zip(chunk, register_whole_pairs(pairs, cfg, timer=timer,
+                                                               mesh=mesh)):
                     yield m, fine
 
     with open(report_path + ".progress", report_mode) as progress:

@@ -1,8 +1,6 @@
-"""ctypes binding of the native BEV artifact writer and float CSV formatter
-(``native/pctpu_io.cpp``'s ``pctpu_write_cloud_artifacts`` and
-``pctpu_format_csv_f32``; the port of the parts of
-``pctpu/runtime/native_io.py`` that batch_multi_bev_gen, batch_cloud_manip
-and cloud_manip run).
+"""ctypes bindings of the native IO library ``native/pctpu_io.cpp``: the BEV
+artifact writers, the CSV formatters and the PCD LZF decoder (the port of
+``pctpu/runtime/native_io.py``).
 
 The library is built at first use with ``g++ -O2 -shared -fPIC … -lz`` into
 ``build/pctpu_torch/`` (never into ``native/``), under a name carrying a hash
@@ -63,6 +61,15 @@ def _load() -> ctypes.CDLL | None:
             lib.pctpu_write_cloud_artifacts.restype = i
             lib.pctpu_format_csv_f32.argtypes = [p, i, i, i, p, ctypes.c_long]
             lib.pctpu_format_csv_f32.restype = ctypes.c_long
+            lib.pctpu_write_png.argtypes = [p, i, i, i, ctypes.c_char_p]
+            lib.pctpu_write_png.restype = i
+            lib.pctpu_write_multi_bev.argtypes = [p, i, i, i, ctypes.c_char_p, ctypes.c_char_p,
+                                                  i, i]
+            lib.pctpu_write_multi_bev.restype = i
+            lib.pctpu_lzf_decompress.argtypes = [p, ctypes.c_long, p, ctypes.c_long]
+            lib.pctpu_lzf_decompress.restype = ctypes.c_long
+            lib.pctpu_format_csv_u8.argtypes = [p, i, i, p, ctypes.c_long]
+            lib.pctpu_format_csv_u8.restype = ctypes.c_long
             _lib = lib
         except (OSError, subprocess.SubprocessError) as exc:
             build_error = getattr(exc, "stderr", None) or str(exc)
@@ -150,3 +157,76 @@ def format_csv_f32(mat: np.ndarray, precision: int) -> bytes | None:
     if n < 0:
         return None
     return out[:n].tobytes()
+
+
+def write_png(path: str, img: np.ndarray, level: int = 1) -> None:
+    """Write an 8-bit grayscale PNG (native if possible, else Python); a
+    non-uint8 image is saturated to uint8 first, as OpenCV's imwrite does."""
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8:
+        from pctpu_torch.ops.rounding import cv_saturate_u8
+
+        img = cv_saturate_u8(img)
+    lib = _load()
+    if lib is not None:
+        if lib.pctpu_write_png(img.ctypes.data, img.shape[0], img.shape[1], level,
+                               path.encode()) == 0:
+            return
+    from pctpu_torch.io.png import write_gray_png
+
+    write_gray_png(path, img, compress_level=level)
+
+
+def write_multi_bev(bin_path: str, img_dir: str, multi: np.ndarray, level: int = 1,
+                    write_pngs: bool = True) -> None:
+    """Write one cloud's multi-BEV: the layer-major ``.bin`` and the
+    per-layer PNGs ``<img_dir>/%02d.png`` (native if possible, else
+    Python)."""
+    multi = np.ascontiguousarray(multi, np.uint8)
+    layers, h, w = multi.shape
+    lib = _load()
+    if lib is not None:
+        if lib.pctpu_write_multi_bev(multi.ctypes.data, layers, h, w, bin_path.encode(),
+                                     img_dir.rstrip("/").encode(), level,
+                                     1 if write_pngs else 0) == 0:
+            return
+    from pctpu_torch.io.png import write_gray_png
+
+    with open(bin_path, "wb") as f:
+        f.write(multi.tobytes())
+    if write_pngs:
+        os.makedirs(img_dir, exist_ok=True)
+        for layer in range(layers):
+            write_gray_png(os.path.join(img_dir, f"{layer:02d}.png"), multi[layer], level)
+
+
+def format_csv_u8(mat: np.ndarray) -> bytes | None:
+    """Native OpenCV-FMT_CSV uint8 formatting ("%3d", ", ", row "\\n").
+    Returns None when the library is unavailable (the caller falls back to
+    the byte-identical Python formatter)."""
+    lib = _load()
+    if lib is None:
+        return None
+    mat = np.ascontiguousarray(mat, np.uint8)
+    h, w = mat.shape
+    cap = h * w * 5
+    out = np.empty(cap, np.uint8)
+    n = lib.pctpu_format_csv_u8(mat.ctypes.data, h, w, out.ctypes.data, cap)
+    if n < 0:
+        return None
+    return out[:n].tobytes()
+
+
+def lzf_decompress(data: bytes, expected_size: int) -> bytes | None:
+    """Native liblzf decompression; None when the library is unavailable or
+    the stream does not decode to exactly ``expected_size`` bytes (the
+    caller falls back to the Python decoder)."""
+    lib = _load()
+    if lib is None:
+        return None
+    out = np.empty(expected_size, np.uint8)
+    src = np.frombuffer(data, np.uint8)
+    n = lib.pctpu_lzf_decompress(src.ctypes.data, len(data), out.ctypes.data, expected_size)
+    if n != expected_size:
+        return None
+    return out.tobytes()

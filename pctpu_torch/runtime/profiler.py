@@ -1,13 +1,16 @@
-"""Stage timing with reference-compatible ``[TIME]`` reports (the port of
-``pctpu/runtime/profiler.py``).
+"""Stage timing with reference-compatible ``[TIME]`` reports, plus optional
+profiler traces (the port of ``pctpu/runtime/profiler.py``).
 
 CUDA work is asynchronous, so a stage's timer synchronises the card before
 it stops: every reported number covers the device work the stage issued,
-as register_pair's stage split promises."""
+as register_pair's stage split promises.  ``trace`` wraps a block in a
+``torch.profiler`` trace, the counterpart of pctpu's ``jax.profiler`` one."""
 
 from __future__ import annotations
 
 import contextlib
+import os
+import tempfile
 import threading
 import time
 from collections import defaultdict
@@ -44,3 +47,27 @@ class StageTimer:
         """A reference-style line, e.g.
         ``[TIME] Average preprocessing and BEV generation: 12.3``"""
         return f"[TIME] {label}: {self.average_ms(name)}"
+
+
+@contextlib.contextmanager
+def trace(name: str, enabled: bool = False, trace_dir: str | None = None):
+    """Optional profiler trace around a block: the host (CPU) and, where
+    this process sees a CUDA card, the card's kernels and copies, with the
+    block as one ``record_function(name)`` span.  The Chrome trace is
+    written to ``<trace_dir>/<name>.<pid>.pt.trace.json`` (``trace_dir``
+    defaults to ``pctpu-trace`` in the temporary directory).  Disabled, it
+    does nothing."""
+    if not enabled:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    trace_dir = trace_dir or os.path.join(tempfile.gettempdir(), "pctpu-trace")
+    with profile(activities=activities) as prof:
+        with record_function(name):
+            yield
+    os.makedirs(trace_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(trace_dir, f"{name}.{os.getpid()}.pt.trace.json"))

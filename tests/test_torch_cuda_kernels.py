@@ -536,3 +536,49 @@ def test_pca_moments_nan_and_inf(dev):
         assert _bit_equal(got, pca.pca_moments_reference(xyz, m))
     mu, cov = pca.pca_moments(xyz[:100], mask[:100])
     assert bool(torch.isnan(mu[0])) and bool(torch.isnan(cov).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", [False, True])
+def test_icp_bits_do_not_hang_on_the_batch_size(dev, plane):
+    """A problem's ICP result on the card is the same in a batch of 16 and
+    of 8 (the point-axis sums in f64): what lets a data mesh's shards
+    report what the unsharded batch reports."""
+    from pctpu_torch.config import RegistrationConfig
+    from pctpu_torch.ops import icp, normals2d
+
+    rng = np.random.default_rng(9)
+    n = 8192
+    x = torch.from_numpy(rng.uniform(-40, 40, (16, n, 3)).astype(np.float32)).to(dev)
+    if plane:
+        x[..., 2] = 0.0
+    y = x + torch.from_numpy(rng.normal(0, 0.05, (16, n, 3)).astype(np.float32)).to(dev)
+    m = torch.from_numpy(rng.random((16, n)) > 0.1).to(dev)
+    guess = torch.eye(4, device=dev).repeat(16, 1, 1)
+    cfg = RegistrationConfig().coarse if plane else RegistrationConfig().fine
+    kw = {}
+    if plane:
+        nrm, _, ok = normals2d.normals_2d(y, m, radius=1.0)
+        kw = dict(tgt_normals=nrm, normal_mask=ok)
+
+    def run(p):
+        extra = {k: v[:p] for k, v in kw.items()}
+        return icp.icp_batched(x[:p], m[:p], y[:p], m[:p], guess[:p], cfg, **extra)
+
+    a, b = run(16), run(8)
+    assert _bit_equal((a.transform[:8], a.fitness[:8]), (b.transform, b.fitness))
+
+
+@pytest.mark.cuda
+def test_sharded_nn_1_on_a_logical_mesh(dev):
+    from pctpu_torch.ops.knn import nn_1
+    from pctpu_torch.parallel.mesh import make_mesh, sharded_nn_1
+
+    rng = np.random.default_rng(10)
+    q, qm = _cloud(rng, 5000, dev)
+    t, tm = _cloud(rng, 12288, dev)
+    for points in (2, 4):
+        got = sharded_nn_1(make_mesh(n_data=1, n_points=points, devices=[dev] * points))(
+            q, qm, t, tm)
+        want = nn_1(q, qm, t, tm)
+        assert torch.equal(got[0], want[0]) and _bit_equal(got[1:], want[1:]), points

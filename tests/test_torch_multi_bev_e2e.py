@@ -13,6 +13,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 from pctpu.config import SensorParams as JSensorParams
 from pctpu.pipelines.multi_bev import run_multi_bev as jrun
@@ -147,10 +148,18 @@ def test_package_exports_match_pctpu():
     assert isinstance(hdl64, pctpu_torch.SensorParams) and hdl64.n_scan == 64
 
 
-def test_cli_rejects_unported_flags(tmp_path):
-    for flag in ("--devices=2", "--num-processes=2", "--profile=x"):
-        with pytest.raises(NotImplementedError):
+def test_cli_rejects_unported_flags(tmp_path, monkeypatch):
+    """pctpu's --devices, multi-process and --profile flags are all taken
+    now (tests/test_torch_parallel.py runs them); a mesh of more cards than
+    the process sees, or a malformed count, is still refused."""
+    # one card: a data mesh of two needs two, and the run stops (exit 2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "one card")
+    for flag, code in (("--devices=2", 2), ("--devices=two", 1), ("--num-processes=x", 1)):
+        with pytest.raises(SystemExit) as exc:
             cli.main([str(tmp_path), "HDL_64E", flag])
+        assert exc.value.code == code, flag
 
 
 def test_python_writers_match_native(tmp_path):

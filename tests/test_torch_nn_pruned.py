@@ -128,6 +128,25 @@ def test_sort_helpers_bit_equal():
         np.testing.assert_array_equal(box_t.view(np.uint32), box_p.view(np.uint32))
 
 
+@pytest.mark.parametrize("seed,n", [(3, 1), (4, 997), (5, 4096)])
+def test_spatial_sort_matches_pctpu(seed, n):
+    """pctpu's ``spatial_sort`` (a stable ``jnp.argsort`` of the Morton key)
+    and the port's: the same order, bit-equal points and masks, ties of
+    equal keys (a coarse lattice) and masked points included."""
+    rng = np.random.default_rng(seed)
+    xyz = rng.integers(-20, 20, (n, 3)).astype(np.float32) * 0.5
+    xyz[: n // 3] = rng.uniform(-30, 30, (n // 3, 3)).astype(np.float32)
+    mask = rng.random(n) > 0.2
+    want = pk.spatial_sort(jnp.asarray(xyz), jnp.asarray(mask))
+    got = tk.spatial_sort(_t(xyz), _t(mask))
+    assert got[2].dtype == torch.int32
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    np.testing.assert_array_equal(got[0].numpy().view(np.uint32),
+                                  np.asarray(want[0]).view(np.uint32))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(got[0].numpy(), xyz[got[2].numpy()])
+
+
 def test_spatial_sort_payload_matches_per_key_run():
     """pctpu's lax.sort is not stable, the port's sort is: the sorted keys
     agree exactly and each run of equal keys holds the same rows."""
@@ -371,6 +390,8 @@ def test_port_imports_no_jax():
         "import pctpu_torch.cli.kitti_raw_point_cloud_select\n"
         "import pctpu_torch.cli.mulran_point_cloud_select\n"
         "import pctpu_torch.cli.oxford_point_cloud_select\n"
+        "import pctpu_torch.parallel, pctpu_torch.parallel.distributed\n"
+        "import pctpu_torch.parallel.mesh, pctpu_torch.runtime.profiler\n"
         "assert pctpu_torch.PCA2D is pctpu_torch.ops.pca2d.PCA2D\n"
         "from pctpu_torch.runtime import native_io\n"
         "assert native_io._lib is None and not native_io._tried\n"

@@ -318,12 +318,15 @@ def test_batch_driver_resume_with_pair_batch(tree, tmp_path):
     assert progress.read_text().splitlines() == [f"{q} {m}" for q, m, _ in PAIRS]
 
 
-def test_unported_driver_options_raise(tree, tmp_path):
+def test_unported_driver_options_raise(tree, tmp_path, monkeypatch):
+    """``devices``, ``num_processes`` and ``process_id`` are ported
+    (tests/test_torch_parallel.py); a card mesh of more cards than the
+    process sees still raises, and never runs on fewer."""
     _, match, clouds = tree
-    for kw in ({"devices": 2}, {"num_processes": 2}, {"process_id": 1}):
-        with pytest.raises(NotImplementedError):
-            reg.run_batch_whole_registration(match, clouds, report_path=str(tmp_path / "x"),
-                                             device="cpu", **kw)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="needs 2 devices, 1 CUDA cards visible"):
+        reg.run_batch_whole_registration(match, clouds, report_path=str(tmp_path / "x"),
+                                         devices=2, device="cuda", capacity=8192)
 
 
 # --- the batched CLIs against pctpu's pair_batch=2 ---------------------------

@@ -146,9 +146,14 @@ def test_cli_resume_and_unported_flags(tree, monkeypatch):
                                       "--pair-batch=4"], cfg)
     assert [r.success for r in batched] == [r.success for r in first]
     assert len(open(batched_report).read().splitlines()) == sum(r.success for r in first)
-    for flag in ("--devices=2", "--num-processes=2"):
-        with pytest.raises(NotImplementedError):
+    # one card: a data mesh of two needs two, and the run stops (exit 2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "one card")
+    for flag in ("--devices=2", "--devices=3"):
+        with pytest.raises(SystemExit) as exc:
             port_cli.main([match, clouds, flag])
+        assert exc.value.code == 2
 
 
 @pytest.mark.parametrize("mode", ["binary", "ascii", "binary_compressed"])

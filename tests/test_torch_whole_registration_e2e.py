@@ -16,6 +16,7 @@ import math
 
 import numpy as np
 import pytest
+import torch
 
 import pctpu.pipelines.registration as jreg
 from pctpu.config import WHOLE_ICP as J_WHOLE_ICP
@@ -171,8 +172,13 @@ def test_cli_resume_usage_and_unported_flags(tree, monkeypatch, capsys):
     assert exc.value.code == 1
     assert capsys.readouterr().out.startswith(
         "Usage: batch_whole_registration <match_result.txt> <point_cloud_dir>")
-    for flag in ("--devices=2", "--num-processes=2", "--process-id=1"):
-        with pytest.raises(NotImplementedError):
+    # one card: a data mesh of two needs two, and the run stops (exit 2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "one card")
+    for flag, code in (("--devices=2", 2), ("--num-processes=two", 1), ("--process-id=", 1)):
+        with pytest.raises(SystemExit) as exc:
             port_cli.main([match, clouds, flag])
+        assert exc.value.code == code, flag
     with pytest.raises(SystemExit):
         port_cli.main([match, clouds, "--capacity=big", "--device=cpu"])
