@@ -142,7 +142,18 @@ Phases, each of which raises on failure (the exit code is then not 0):
    of the unsharded run, and ``sharded_nn_1`` bit-equal to ``knn.nn_1`` on
    the fine bucket; ``--devices=2`` exiting 2 on all three CLIs; and
    ``--profile`` on 8 clouds, its Chrome trace holding the run's span and
-   ``bev_raster``'s kernel events.
+   ``bev_raster``'s kernel events;
+14. the differential campaign on the card
+   (``pctpu_torch.experiments.fuzz_campaign``, in-process, seeds from
+   3,000,000: ``CAMPAIGN_ARGV``): every leg — the 7 point regimes with voxel
+   and top-flatten, the three sensors at full grids, the C++ oracle, the
+   adversarial shapes, the float BEV and PCA2D, both normals searches,
+   per-iteration ICP in both modes, 16 two-stage pairs one by one and as
+   one ``register_pairs`` batch of 16 with the whole driver, and the
+   KITTI-raw structuring — each case against its oracle and against the
+   port's CPU run; 0 FAIL lines, every KNIFE line naming its D-row, and
+   ``bev_raster``, ``ground_sums``, ``segment_sum4``, ``nn_prep``,
+   ``nn_pruned``, ``nn_prep_batched`` and ``nn_pruned_batched`` launched.
 
 Phase 3's two gates that read the profiler: the segment sums' tile kernel
 is held against the walk on each design's device time by torch.profiler,
@@ -151,7 +162,7 @@ both called in turns in one window (their wall times, on a launch floor of
 ``experiments.card.profile_calls`` counts a call's kernels among the device
 events that start inside the calls' own span.
 
-Each of paths 5-13 runs with the launch counts set to 0 just before it and
+Each of paths 5-14 runs with the launch counts set to 0 just before it and
 read just after; a kernel of the path launched no time fails the run.  In
 phase 13 that holds for every mesh run and every process on its own, apart
 from the unsharded runs they are compared with.
@@ -1557,6 +1568,49 @@ def pair_batched_phase(dev: torch.device, smi: str, capacity: int = 65536) -> di
     return results["top", 16]["launches"]
 
 
+CAMPAIGN_ARGV = ["--start=3000000", "--cases=20", "--sensors", "--native=50", "--adversarial=6",
+                 "--misc=10", "--normals=10", "--icp=6", "--twostage=16", "--kitti-raw=10"]
+CAMPAIGN_LEGS = ("preprocess", "voxel", "topflatten", "sensors", "native", "adversarial", "misc",
+                 "normals", "icp", "twostage", "kitti_raw")
+CAMPAIGN_KERNELS = ("bev_raster", "ground_sums", "segment_sum4", "nn_prep", "nn_pruned",
+                    "nn_prep_batched", "nn_pruned_batched")
+
+
+def campaign_phase(dev: torch.device, smi: str, argv=CAMPAIGN_ARGV) -> dict:
+    """Phase 14: the campaign on the card; returns its launch counts."""
+    from pctpu_torch.experiments import fuzz_campaign
+    from pctpu_torch.ops import _cuda
+
+    captured = io.StringIO()
+    _cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(captured):
+        summary = fuzz_campaign.run([*argv, f"--device={dev.type}"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_cuda.launch_counts)
+    log = captured.getvalue().splitlines()
+    for line in log:
+        if line.startswith(("FAIL", "KNIFE", "leg ", "DONE", "icp ", "twostage: asserted",
+                            "fuzz campaign")):
+            print(f"  {line}")
+    ran = {k for k, t in summary["legs"].items() if t["cases"]}
+    if set(CAMPAIGN_LEGS) - ran:
+        raise AssertionError(f"campaign legs that ran no case: {sorted(set(CAMPAIGN_LEGS) - ran)}")
+    unattributed = [line for line in log if line.startswith("KNIFE")
+                    and not re.match(r"KNIFE \S+ seed=.* D\d+ \S", line)]
+    if unattributed:
+        raise AssertionError(f"KNIFE lines without a D-row: {unattributed[:3]}")
+    if summary["failures"] or any(line.startswith("FAIL") for line in log):
+        raise AssertionError(f"the campaign found {summary['failures']} divergences")
+    require_launched(launches, CAMPAIGN_KERNELS, "the differential campaign")
+    print(f"campaign: {sum(t['cases'] for t in summary['legs'].values())} cases in {wall:.1f} s, "
+          f"KNIFE {summary['knife_edges']}, FAIL 0; hand-kernel launches {nonzero(launches)}; "
+          f"card {smi}")
+    return launches
+
+
 # a fresh interpreter on the card: ``<module>.main(<warm-up argv>)`` with its
 # output dropped (CUDA context, library handles, kernels loaded), the launch
 # counts set to 0, then ``<module>.main(argv)``; prints the launch counts
@@ -2297,10 +2351,16 @@ def main() -> int:
     # --- 13. the parallel paths on the one card --------------------------------
     sharded = parallel_phase(dev, smi)
 
+    # --- 14. the differential campaign on the card -----------------------------
+    campaign = campaign_phase(dev, smi)
+
+    def with_campaign(entry: dict) -> dict:
+        return {**entry, "campaign_launches": campaign[entry["name"]]}
+
     # K1, the prep and K4's <128, 1024, prod> on the fine pass at thr 1 m
     fine = nn_ms["fine thr 1 m"]
     big_fused = fused[0]
-    print(json.dumps({"kernels": [
+    print(json.dumps({"kernels": [with_campaign(k) for k in [
         {"name": "nn_pruned", "route": "cuda", "source": "pctpu_torch/csrc/nn_pruned_warp.cu",
          "replaces": "pctpu/ops/pallas_knn.py:275", "launches": launches["nn_pruned"],
          "max_abs_err": nn_err, "ms": fine["alone"], "plain_ms": fine["twin"],
@@ -2343,7 +2403,7 @@ def main() -> int:
          "library_ms": fine["library"]},
         *({**k, **parallel_launches(sharded, k["name"])} for k in bev_kernels),
         pca_kernel,
-    ]}))
+    ]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

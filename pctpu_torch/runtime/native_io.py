@@ -70,11 +70,28 @@ def _load() -> ctypes.CDLL | None:
             lib.pctpu_lzf_decompress.restype = ctypes.c_long
             lib.pctpu_format_csv_u8.argtypes = [p, i, i, p, ctypes.c_long]
             lib.pctpu_format_csv_u8.restype = ctypes.c_long
+            _build_csv_table(lib)
             _lib = lib
         except (OSError, subprocess.SubprocessError) as exc:
             build_error = getattr(exc, "stderr", None) or str(exc)
             _lib = None
         return _lib
+
+
+def _build_csv_table(lib: ctypes.CDLL) -> None:
+    """Format one cell, here, under the load lock, before any writer thread
+    can reach the library.  ``pctpu_format_csv_u8`` (``native/pctpu_io.cpp``)
+    fills its table of cells at first use behind an unlocked flag: two
+    writer threads formatting their first CSVs at once can both fill it,
+    and one copies cells while the other rewrites them — glibc's
+    ``snprintf`` writes the terminating NUL first, so NUL bytes reach the
+    CSV (seen with two writer threads, never with one:
+    ``tests/test_torch_native_io.py``).  Built once before the threads
+    start, the table is only read."""
+    cell = np.zeros((1, 1), np.uint8)
+    out = np.empty(8, np.uint8)
+    if lib.pctpu_format_csv_u8(cell.ctypes.data, 1, 1, out.ctypes.data, len(out)) != 3:
+        raise OSError("pctpu_format_csv_u8 failed on one cell")
 
 
 def native_available() -> bool:

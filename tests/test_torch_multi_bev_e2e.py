@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import pctpu.runtime.native_io as jnio
 from pctpu.config import SensorParams as JSensorParams
 from pctpu.pipelines.multi_bev import run_multi_bev as jrun
 from pctpu.runtime.loader import load_xyzirct_arrays as jload
@@ -28,6 +29,16 @@ from pctpu_torch.runtime.loader import load_xyzirct_arrays
 
 SMALL = (16, 256, 10, 0.5)
 OUTPUTS = ("non_ground_point_cloud", "output_multi_bev", "output_single_bev")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _pctpu_csv_cells():
+    """pctpu's native CSV formatter (``native/pctpu_io.cpp``) fills its table
+    of cells at first use without a lock, and pctpu's two writer threads can
+    race there and write NUL bytes into pctpu's tree (ROADMAP F8; the port's
+    loader builds its own copy's table first).  Build pctpu's once, on one
+    thread, before its pipeline runs."""
+    assert jnio.format_csv_u8(np.zeros((1, 1), np.uint8)) == b"  0"
 
 
 def output_files(root) -> dict[str, bytes]:

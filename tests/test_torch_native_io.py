@@ -1,10 +1,13 @@
 """The port's native IO bindings (``pctpu_torch.runtime.native_io``) against
 pctpu's: ``write_png``, ``write_multi_bev``, ``format_csv_u8`` and
 ``lzf_decompress`` byte-equal on the same inputs, their Python fallbacks
-equal to the native paths, and the port's ``binary_compressed`` PCD read
-going through the native decoder."""
+equal to the native paths, the port's ``binary_compressed`` PCD read
+going through the native decoder, and the CSV formatter's first use from
+several writer threads (ROADMAP F8)."""
 
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -14,6 +17,8 @@ from pctpu_torch.io import pcd as tpcd
 from pctpu_torch.runtime import native_io as nio
 
 from .test_pcd import _lzf_compress_literals
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(autouse=True)
@@ -79,6 +84,94 @@ def test_format_csv_u8_equals_pctpu(monkeypatch):
         assert got is not None and got == jnio.format_csv_u8(u8)
     monkeypatch.setattr(nio, "_load", lambda: None)
     assert nio.format_csv_u8(u8) is None
+
+
+# Fresh instances of the native library (copies under new names, so each
+# has its own statics), each formatting a 224² image of every byte value
+# from THREADS threads released together; prints the instances whose CSVs
+# were not the Python formatter's bytes.  LOADER: each copy is loaded
+# through ``native_io._load`` (which builds the cell table under its lock),
+# else bound bare, as any other caller of the library would.  A process
+# holds a few hundred such copies at most (each takes a thread-local
+# block), so each batch runs in a process of its own.
+_RACE = """
+import ctypes, pathlib, shutil, sys, tempfile, threading
+import numpy as np
+from pctpu_torch.io.csvfmt import format_csv_python
+from pctpu_torch.runtime import native_io as nio
+n_libs, threads, loader = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3] == "1"
+src = nio.library_path()
+assert nio._load() is not None, nio.build_error
+img = (np.arange(224 * 224) % 256).astype(np.uint8).reshape(224, 224)
+want = format_csv_python(img)
+bad = 0
+with tempfile.TemporaryDirectory() as tmp:
+    for k in range(n_libs):
+        path = pathlib.Path(tmp) / f"libpctpu_io_{k}.so"
+        shutil.copy(src, path)
+        if loader:
+            nio.library_path = lambda path=path: path
+            nio._lib, nio._tried = None, False
+            assert nio._load() is not None, nio.build_error
+            fmt = nio.format_csv_u8
+        else:
+            lib = ctypes.CDLL(str(path))
+            lib.pctpu_format_csv_u8.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                                ctypes.c_void_p, ctypes.c_long]
+            lib.pctpu_format_csv_u8.restype = ctypes.c_long
+
+            def fmt(mat, lib=lib):
+                out = np.empty(mat.size * 5, np.uint8)
+                n = lib.pctpu_format_csv_u8(mat.ctypes.data, *mat.shape, out.ctypes.data,
+                                            out.size)
+                return out[:n].tobytes()
+        got = [None] * threads
+        start = threading.Barrier(threads)
+
+        def run(i):
+            start.wait(timeout=30)
+            got[i] = fmt(img)
+
+        workers = [threading.Thread(target=run, args=(i,)) for i in range(threads)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=30)
+        assert not any(w.is_alive() for w in workers)
+        bad += any(g != want for g in got)
+print(bad)
+"""
+
+
+def _first_use_race(n_libs: int, threads: int, loader: bool, batch: int = 400) -> int:
+    """Instances (of ``n_libs``, in processes of ``batch``) whose CSVs were wrong."""
+    bad = 0
+    for done in range(0, n_libs, batch):
+        res = subprocess.run([sys.executable, "-c", _RACE, str(min(batch, n_libs - done)),
+                              str(threads), "1" if loader else "0"], cwd=REPO,
+                             capture_output=True, text=True, timeout=300)
+        assert res.returncode == 0, res.stderr
+        bad += int(res.stdout.split()[-1])
+    return bad
+
+
+def test_csv_formatter_first_use_from_writer_threads():
+    """F8: the BEV pipelines' two writer threads format their first CSVs at
+    once in a fresh process.  Through the port's loader no CSV differs from
+    the Python formatter's bytes, with 4 threads on 400 fresh instances;
+    bound bare, the library gives NUL bytes in some
+    (``test_csv_formatter_first_use_race_needs_two_threads``)."""
+    assert _first_use_race(400, 4, loader=True) == 0
+
+
+@pytest.mark.slow
+def test_csv_formatter_first_use_race_needs_two_threads():
+    """The fault the loader guards against, in the library itself: bound
+    bare, 1,000 fresh instances formatting from one thread never give a
+    wrong CSV; from two threads at once some do (NUL bytes where a cell's
+    text was being rewritten)."""
+    assert _first_use_race(1000, 1, loader=False) == 0
+    assert _first_use_race(1000, 2, loader=False) > 0
 
 
 def test_lzf_decompress_equals_pctpu(monkeypatch):

@@ -392,6 +392,7 @@ def test_port_imports_no_jax():
         "import pctpu_torch.cli.oxford_point_cloud_select\n"
         "import pctpu_torch.parallel, pctpu_torch.parallel.distributed\n"
         "import pctpu_torch.parallel.mesh, pctpu_torch.runtime.profiler\n"
+        "import pctpu_torch.experiments.fuzz_campaign, pctpu_torch.experiments.fuzz_scenes\n"
         "assert pctpu_torch.PCA2D is pctpu_torch.ops.pca2d.PCA2D\n"
         "from pctpu_torch.runtime import native_io\n"
         "assert native_io._lib is None and not native_io._tried\n"

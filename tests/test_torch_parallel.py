@@ -17,6 +17,7 @@ import torch
 
 import pctpu.io.pcd as jpcd
 import pctpu.pipelines.registration as jreg
+import pctpu.runtime.native_io as jnio
 from pctpu.cloud import make_cloud as jmake_cloud
 from pctpu.config import GroundConfig as JGroundConfig
 from pctpu.config import MultiBevConfig as JMultiBevConfig
@@ -60,6 +61,16 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _pctpu_csv_cells():
+    """pctpu's native CSV formatter (``native/pctpu_io.cpp``) fills its table
+    of cells at first use without a lock, and pctpu's two writer threads can
+    race there and write NUL bytes into pctpu's tree (ROADMAP F8; the port's
+    loader builds its own copy's table first).  Build pctpu's once, on one
+    thread, before its pipeline runs."""
+    assert jnio.format_csv_u8(np.zeros((1, 1), np.uint8)) == b"  0"
 
 
 # --- parallel.distributed ---------------------------------------------------
