@@ -153,7 +153,21 @@ Phases, each of which raises on failure (the exit code is then not 0):
    KITTI-raw structuring — each case against its oracle and against the
    port's CPU run; 0 FAIL lines, every KNIFE line naming its D-row, and
    ``bev_raster``, ``ground_sums``, ``segment_sum4``, ``nn_prep``,
-   ``nn_pruned``, ``nn_prep_batched`` and ``nn_pruned_batched`` launched.
+   ``nn_pruned``, ``nn_prep_batched`` and ``nn_pruned_batched`` launched;
+15. pctpu's tools outside the package, ported into
+   ``pctpu_torch.experiments`` and ``examples/``: the reference-parity
+   harness's native-oracle tier (the KITTI selector and
+   ``batch_multi_bev_gen HDL_64E`` as processes of their own on the card,
+   every artifact against ``native/ref_oracle.cpp``: 0 diverging); the
+   registration chain's device floor (``FLOOR_STEPS`` batches of 16 pairs,
+   the first batch's transforms bit-equal to ``register_pairs``, the card's
+   busy time a pair by torch.profiler); the scaling harness at 1 and 2
+   devices (a logical mesh on one card, bit-exact BEVs, labels and
+   registration transforms identical to one device); the sort-based
+   ordering bit-equal to ``get_ordered_cloud`` and both timed; and both
+   examples with ``--device=cuda``; ``bev_raster`` and ``ground_sums``
+   launched by the parity and scaling runs, ``nn_prep_batched``,
+   ``nn_pruned_batched`` and ``segment_sum4`` by the floor and scaling runs.
 
 Phase 3's two gates that read the profiler: the segment sums' tile kernel
 is held against the walk on each design's device time by torch.profiler,
@@ -162,8 +176,8 @@ both called in turns in one window (their wall times, on a launch floor of
 ``experiments.card.profile_calls`` counts a call's kernels among the device
 events that start inside the calls' own span.
 
-Each of paths 5-14 runs with the launch counts set to 0 just before it and
-read just after; a kernel of the path launched no time fails the run.  In
+Each of paths 5-15 runs with the launch counts set to 0 just before it and
+read just after (in phase 15 each tool on its own); a kernel of the path launched no time fails the run.  In
 phase 13 that holds for every mesh run and every process on its own, apart
 from the unsharded runs they are compared with.
 Prints one JSON line of per-kernel results, then the final line
@@ -1982,6 +1996,131 @@ def parallel_launches(counts: dict, name: str) -> dict:
             "process_launches": counts["processes"][name]}
 
 
+FLOOR_STEPS = 3
+
+
+def tools_phase(dev: torch.device, smi: str) -> collections.Counter:
+    """Phase 15: pctpu's tools outside the package, ported, on the card.
+    Returns the hand-kernel launches of its paths, summed."""
+    from pctpu_torch.experiments import (reference_parity, registration_floor, scaling_bench,
+                                         sort_ordering)
+    from pctpu_torch.ops import _cuda
+
+    t_phase = time.perf_counter()
+    base = os.path.join(ROOT, "build", "chip_smoke_tools")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    total: collections.Counter = collections.Counter()
+
+    def path(names, what: str, fn, *args):
+        """``fn(*args)`` counted from 0; its launches must name ``names``."""
+        _cuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, log = run_logged(fn, *args)
+        torch.cuda.synchronize()
+        launches = nonzero(_cuda.launch_counts)
+        require_launched(launches, names, what)
+        total.update(launches)
+        return out, log, launches, time.perf_counter() - t0
+
+    # --- 15a. the reference-parity harness's native-oracle tier -----------
+    # its CLIs run as processes of their own (``WORKER``), each reporting
+    # its launches
+    in_procs: collections.Counter = collections.Counter()
+
+    def counted_cli(tool, *args, device):
+        argv = [*map(str, args)] + ([f"--device={device}"]
+                                    if tool in reference_parity.DEVICE_TOOLS else [])
+        (_, launches), = run_workers(f"pctpu_torch.cli.{tool}", [([], argv)])
+        in_procs.update(launches)
+
+    verdict, log, _, wall = path((), "the parity tier", reference_parity.native_oracle_tier,
+                                 os.path.join(base, "parity"), "cuda",
+                                 os.path.join(base, "parity.json"), counted_cli)
+    require_launched(in_procs, ("bev_raster", "ground_sums"), "the parity tier's CLIs")
+    total.update(in_procs)
+    if verdict["tier"] != "native-oracle" or verdict["outside_window"] or \
+            verdict["comparisons"] != 15:
+        raise AssertionError(f"parity tier: {verdict['tier']}, {verdict['comparisons']} "
+                             f"comparisons, {verdict['outside_window']} diverging:\n{log[-2000:]}")
+    print(f"15a parity (native-oracle tier, KITTI select + batch_multi_bev_gen HDL_64E on the "
+          f"card): {verdict['comparisons']} comparisons, 0 diverging, {wall:.1f} s; launches "
+          f"{nonzero(in_procs)}; verdict device {verdict['device']}")
+
+    # --- 15b. the registration chain's device floor ------------------------
+    floor, _, launches, wall = path(("nn_prep_batched", "nn_pruned_batched", "segment_sum4"),
+                                    "registration_floor", registration_floor.run,
+                                    [str(FLOOR_STEPS), "--device=cuda"], dev)
+    if not floor["register_pairs_bit_equal"]:
+        raise AssertionError("registration_floor: the chain's transforms differ from "
+                             f"register_pairs by {floor['max_abs_err_vs_register_pairs']}")
+    print(f"15b registration_floor ({FLOOR_STEPS} batches of {floor['n_pairs']} pairs, buckets "
+          f"{floor['bucket_coarse']}/{floor['bucket_fine']}): first batch bit-equal to "
+          f"register_pairs; device busy {floor['ms_per_pair_device_serial']:.4f} ms a pair "
+          f"(ceiling {floor['pairs_per_sec_ceiling']:.2f} pairs/s), wall "
+          f"{floor['ms_per_pair_wall']:.4f} ms a pair (profiled "
+          f"{floor['ms_per_pair_wall_profiled']:.4f}), busy share "
+          f"{floor['device_busy_share']:.4f} of the wall, estimated (of the profiled window "
+          f"{floor['device_busy_share_profiled_window']:.4f}); kernels "
+          f"{floor['kernels_per_pair']:.1f} and host "
+          f"syncs {floor['host_syncs_per_pair']:.2f} a pair; {wall:.1f} s; launches {launches}")
+    top = list(floor["launches_per_pair"].items())[:10]
+    print("  kernels a pair, most launched: " + ", ".join(f"{k} {v:.2f}" for k, v in top))
+    print(f"  host syncs a pair by line: {floor['sync_sites_per_pair']}")
+
+    # --- 15c. the scaling harness: one device and a logical mesh of two ----
+    (results, summary), log, launches, wall = path(
+        ("bev_raster", "ground_sums", "nn_prep_batched", "nn_pruned_batched", "segment_sum4"),
+        "scaling_bench", scaling_bench.run,
+        ["--device-counts", "1,2", "--registration", "--compat", "bitexact"])
+    two = results[1]
+    if any("ERROR" in r for r in results) or not (
+            two["outputs_byte_identical_to_single_device"]
+            and two["registration_identical_to_single_device"]):
+        raise AssertionError(f"scaling_bench: the mesh of two differs from one device:\n{log}")
+    print(f"15c scaling_bench (HDL-64E bitexact, logical mesh [cuda:0] * 2): BEVs, labels and "
+          f"transforms identical to one device; " + "; ".join(
+              f"{r['devices']}: {r['clouds_per_sec']:.2f} clouds/s, "
+              f"{r['registration_pairs_per_sec']:.2f} pairs/s" for r in results)
+          + f" (distinct devices {summary['distinct_devices']}, not a scaling claim); "
+          f"{wall:.1f} s; launches {launches}")
+
+    # --- 15d. sort-based ordering against scatter-max + gather ------------
+    sort, _, _, wall = path((), "sort_ordering", sort_ordering.run, ["--device=cuda"], dev)
+    if not sort["bit_equal"]:
+        raise AssertionError("sort_ordering: the sort variant differs from get_ordered_cloud")
+    print(f"15d sort_ordering ({sort['clouds']} HDL-64E clouds, {sort['n_points']} points "
+          f"each): bit-equal; {sort['ms_per_cloud_segment_max_gather']:.4f} ms a cloud "
+          f"scatter-max + gather ({sort['kernels_per_batch_incumbent']} kernels a batch), "
+          f"{sort['ms_per_cloud_sort_based']:.4f} sort-based "
+          f"({sort['kernels_per_batch_sort']}); {wall:.1f} s")
+
+    # --- 15e. the port's two examples on the card --------------------------
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    import torch_end_to_end_demo
+    import torch_library_quickstart
+
+    rc, log, launches, wall = path(
+        ("bev_raster", "ground_sums", "nn_pruned_batched", "segment_sum4"), "the demo",
+        torch_end_to_end_demo.main, [os.path.join(base, "demo"), "--device=cuda"])
+    if rc != 0 or "count_success: 2, count_failure: 0" not in log:
+        raise AssertionError(f"torch_end_to_end_demo exited {rc}:\n{log[-2000:]}")
+    print(f"15e torch_end_to_end_demo --device=cuda: exit 0, 2 of 2 pairs, {wall:.1f} s; "
+          f"launches {launches}")
+    rc, log, launches, wall = path(("bev_raster", "nn_pruned"), "the quickstart",
+                                   torch_library_quickstart.main,
+                                   [os.path.join(base, "quickstart"), "--device=cuda"])
+    if rc != 0 or "quickstart OK" not in log:
+        raise AssertionError(f"torch_library_quickstart exited {rc}:\n{log[-2000:]}")
+    print(f"    torch_library_quickstart --device=cuda: exit 0, {wall:.1f} s; launches "
+          f"{launches}")
+    shutil.rmtree(base)
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s; hand-kernel launches "
+          f"{dict(total)}; card {smi}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)",
@@ -2354,8 +2493,12 @@ def main() -> int:
     # --- 14. the differential campaign on the card -----------------------------
     campaign = campaign_phase(dev, smi)
 
+    # --- 15. pctpu's tools outside the package ---------------------------------
+    tools = tools_phase(dev, smi)
+
     def with_campaign(entry: dict) -> dict:
-        return {**entry, "campaign_launches": campaign[entry["name"]]}
+        return {**entry, "campaign_launches": campaign[entry["name"]],
+                "tools_launches": tools[entry["name"]]}
 
     # K1, the prep and K4's <128, 1024, prod> on the fine pass at thr 1 m
     fine = nn_ms["fine thr 1 m"]

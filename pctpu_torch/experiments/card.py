@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import re
 import subprocess
+import sys
 
 import torch
 
@@ -126,44 +127,79 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def profile_calls(fn, reps: int = 50) -> tuple[int, int, dict[str, float]]:
-    """What one call of ``fn`` puts on the card, by torch.profiler over
-    ``reps`` calls after a warm-up: (kernels, copies and memsets, {kernel,
-    copy or memset name: device ms}), per call.  Only the device events that
-    start inside the span of the calls (a ``record_function`` around them,
+def profile_window(fn, reps: int, mark: str = "profile_calls") -> tuple[list, float]:
+    """The device events of ``reps`` calls of ``fn`` under torch.profiler,
+    and the window's wall in ms.  Only the device events that start inside
+    the span of the calls (a ``record_function`` named ``mark`` around them,
     ended after a synchronize) are the calls' own: an event of an earlier
     window that the profiler hands over late is not counted.  The profiler
     can also miss events of a window, and come back with none at all, so a
     window whose events are not a whole number a call is taken again, up to
-    four times, and the fullest one is kept; the counts are rounded."""
+    four times, and the fullest one is kept; the wall is that window's span
+    (the profiler's own host cost included)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    fn()
-    torch.cuda.synchronize()
     events: list = []
+    wall_ms = 0.0
+    cuda = torch.autograd.DeviceType.CUDA
     for _ in range(4):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            with record_function("profile_calls"):
+            with record_function(mark):
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
         listed = prof.events()
-        cuda = torch.autograd.DeviceType.CUDA
-        span = next(e.time_range for e in listed
-                    if e.name == "profile_calls" and e.device_type != cuda)
+        span = next(e.time_range for e in listed if e.name == mark and e.device_type != cuda)
         # the span's own mark on the card's timeline is no event of the calls
-        window = [e for e in listed if e.device_type == cuda and e.name != "profile_calls"
+        window = [e for e in listed if e.device_type == cuda and e.name != mark
                   and span.start <= e.time_range.start <= span.end]
-        if len(window) > len(events):
-            events = window
+        if len(window) > len(events) or not events:
+            events, wall_ms = window, (span.end - span.start) / 1e3
         if window and len(window) % reps == 0:
             break
-    copies = [e for e in events if e.name.startswith(("Memcpy", "Memset"))]
+    return events, wall_ms
+
+
+def is_copy(name: str) -> bool:
+    """A device event that is a copy or a memset, not a kernel."""
+    return name.startswith(("Memcpy", "Memset"))
+
+
+def kernel_name(name: str) -> str:
+    """A device event's name without its template and argument lists: the
+    ``..._kernel`` it holds, else its last identifier before them (a copy or
+    memset keeps its whole name)."""
+    if is_copy(name):
+        return name
+    if m := re.search(r"\w+_kernel", name):
+        return m.group(0)
+    name = re.sub(r"^std::enable_if<[^>]*>::type\s+", "", name)
+    head = name.split("<", 1)[0].replace("(anonymous namespace)", "").split("(", 1)[0]
+    parts = head.split()[-1].split("::") if head.strip() else [name]
+    return "::".join(parts[-2:]) if parts[-1] == "kernel" else parts[-1]
+
+
+def by_name(events: list, reps: int) -> tuple[dict[str, float], dict[str, float]]:
+    """Launches and device ms a call, by :func:`kernel_name`."""
+    counts: dict[str, float] = {}
     ms: dict[str, float] = {}
     for e in events:
-        name = m.group(0) if (m := re.search(r"\w+_kernel", e.name)) else e.name
+        name = kernel_name(e.name)
+        counts[name] = counts.get(name, 0) + 1 / reps
         ms[name] = ms.get(name, 0.0) + e.device_time_total / 1e3 / reps
-    return round((len(events) - len(copies)) / reps), round(len(copies) / reps), ms
+    return counts, ms
+
+
+def profile_calls(fn, reps: int = 50) -> tuple[int, int, dict[str, float]]:
+    """What one call of ``fn`` puts on the card, by :func:`profile_window`
+    over ``reps`` calls after a warm-up: (kernels, copies and memsets,
+    {kernel, copy or memset name: device ms}), per call; the counts are
+    rounded."""
+    fn()
+    torch.cuda.synchronize()
+    events, _ = profile_window(fn, reps)
+    copies = sum(is_copy(e.name) for e in events)
+    return round((len(events) - copies) / reps), round(copies / reps), by_name(events, reps)[1]
 
 
 def mismatches(got, want) -> tuple[int, float]:
@@ -180,3 +216,25 @@ def mismatches(got, want) -> tuple[int, float]:
         else:
             n += int((a != b).sum())
     return n, err
+
+
+def tool_device(device: str, prog: str) -> torch.device | None:
+    """The ``--device=cuda|cpu`` of a tool under ``experiments``: the current
+    card or the CPU.  Without a card, ``cuda`` prints why, naming
+    ``--device=cpu``, and returns None (the tool then exits 2): nothing
+    falls back to the CPU."""
+    if device == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        print(f"{prog}: no CUDA card (torch.cuda.is_available() is false); pass "
+              "--device=cpu to run the port on the CPU", file=sys.stderr)
+        return None
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def device_record(dev: torch.device) -> dict:
+    """Where a tool ran, for its JSON: the device type and, on the card, its
+    name and the nvidia-smi line (name, power limit)."""
+    if dev.type != "cuda":
+        return {"type": dev.type}
+    return {"type": "cuda", "name": torch.cuda.get_device_name(dev), "smi": nvidia_smi_line()}

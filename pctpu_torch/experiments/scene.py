@@ -386,3 +386,53 @@ def oxford_tree(root: str, n_frames: int = 5, spacing: float = 3.0, seed: int = 
         f.write("\n".join(lines) + "\n")
     with open(os.path.join(root, "velodyne_left.timestamps"), "w") as f:
         f.write("\n".join(f"{s} 1" for s in stamps) + "\n")
+
+
+# bench.py's synthetic HDL-64E batches: points a cloud, clouds a batch
+BENCH_N_POINTS = 120_000
+BENCH_BATCH = 8
+
+
+def synth_batch(params, batch: int, n_points: int, seed: int, ordered: bool = False,
+                device="cuda"):
+    """The port's copy of ``bench.synth_batch`` (bench.py:142): ``batch``
+    random clouds as one batched Cloud on ``device``, the same values from
+    the same seed.  ``ordered=True`` is the selectors' layout (dense grid,
+    slot = row·H + col, empty slots all-zero with label 0, about
+    ``n_points`` kept); ``ordered=False`` places ``n_points`` points at
+    random rows and columns (the general path of the ordering)."""
+    import torch
+
+    from pctpu_torch.cloud import Cloud
+
+    rng = np.random.default_rng(seed)
+    g = params.grid_size
+    rangev = rng.uniform(3, 100, (batch, g)).astype(np.float32)
+    az = rng.uniform(0, 2 * np.pi, (batch, g)).astype(np.float32)
+    ground = rng.random((batch, g)) < 0.5
+    z = np.where(ground, rng.uniform(-2.0, -1.8, (batch, g)),
+                 rng.uniform(-1.0, 6.0, (batch, g))).astype(np.float32)
+    xyz = np.stack([rangev * np.cos(az), rangev * np.sin(az), z], axis=-1)
+    if ordered:
+        mask = rng.random((batch, g)) < (n_points / g)
+        slot = np.arange(g)
+        row = np.broadcast_to(slot // params.horizon_scan, (batch, g)).astype(np.int32)
+        col = np.broadcast_to(slot % params.horizon_scan, (batch, g)).astype(np.int32)
+        count = np.full((batch,), g, np.int32)
+        intensity = np.maximum(rng.random((batch, g)).astype(np.float32), 1e-3)
+    else:
+        mask = np.broadcast_to(np.arange(g)[None, :] < n_points, (batch, g))
+        row = rng.integers(0, params.n_scan, (batch, g)).astype(np.int32)
+        col = rng.integers(0, params.horizon_scan, (batch, g)).astype(np.int32)
+        count = np.full((batch,), n_points, np.int32)
+        intensity = rng.random((batch, g)).astype(np.float32)
+
+    def t(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+
+    return Cloud(xyz=t(xyz * mask[..., None], torch.float32),
+                 intensity=t(intensity * mask, torch.float32),
+                 row=t(row * mask, torch.int32), col=t(col * mask, torch.int32),
+                 t=torch.zeros((batch, g), dtype=torch.int64, device=device),
+                 label=t(np.where(mask, -2, 0).astype(np.int32), torch.int32),
+                 count=t(count, torch.int64))

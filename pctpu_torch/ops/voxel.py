@@ -42,7 +42,9 @@ def segment_sum_sorted_reference(
     rows, added one by one in row order; a row that no segment names holds
     ``init``.  Step k adds the k-th row of every segment at once (one update
     per segment per step, so the order inside each segment is the row
-    order)."""
+    order); once fewer than ``_TAIL_SEGMENTS`` segments are still running,
+    each of them adds its remaining rows one at a time, so a cloud whose
+    empty cells all fall in one segment costs its length, not length × n."""
     n, lanes = seg.shape[0], values.shape[1]
     dev = values.device
     n_out = n if n_out is None else n_out
@@ -51,16 +53,37 @@ def segment_sum_sorted_reference(
     out = start.to(dev).repeat(n_out, 1)
     seg = seg.long()
     valid = (seg >= 0) & (seg < n_out)
+    if n == 0 or not bool(valid.any()):
+        return out
     seg = torch.where(valid, seg, -1)
     i = torch.arange(n, device=dev)
     prev = torch.cat([seg.new_full((1,), -1), seg[:-1]])
     head = valid & (seg != prev)
     pos = i - torch.cummax(torch.where(head, i, 0), dim=0).values
-    pos = torch.where(valid, pos, -1)
-    for k in range(int(pos.max()) + 1 if n else 0):
-        at = torch.nonzero(pos == k).squeeze(1)
+    longest = int(pos[valid].max()) + 1
+    # the rows grouped by their place in their segment (row order inside a
+    # group); rows that join no segment sort last
+    by_pos = torch.argsort(torch.where(valid, pos, longest), stable=True)
+    counts = torch.bincount(pos[valid], minlength=longest).tolist()
+    done, k = 0, 0
+    while k < longest and counts[k] >= _TAIL_SEGMENTS:
+        at = by_pos[done:done + counts[k]]
         out[seg[at]] = out[seg[at]] + rows[at]
+        done += counts[k]
+        k += 1
+    rest = by_pos[done:done + sum(counts[k:])].sort().values
+    if rest.numel():
+        ids, lens = torch.unique_consecutive(seg[rest], return_counts=True)
+        for s, piece in zip(ids.tolist(), rows[rest].split(lens.tolist())):
+            acc = out[s]
+            for row in piece.unbind(0):
+                acc = acc + row
+            out[s] = acc
     return out
+
+
+# segments still running below which the twin adds row by row
+_TAIL_SEGMENTS = 8
 
 
 def _segment_launcher(values, seg, init, n_out, order, count_as, walk=False, fill=True):

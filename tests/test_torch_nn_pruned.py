@@ -363,9 +363,16 @@ def test_entry_points_default_to_cuda(entry):
 
 def test_port_imports_no_jax():
     """Importing the port pulls in neither jax nor pctpu, and builds
-    nothing: the CUDA library is compiled at first launch only."""
+    nothing: the CUDA library is compiled at first launch only.  The tools
+    ported from pctpu's scripts and the port's examples import with
+    ``jax``, ``pctpu``, ``bench`` and pctpu's ``tests`` made unimportable."""
     code = (
-        "import sys\n"
+        "import importlib.abc, importlib.util, sys\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'pctpu', 'bench', 'tests'):\n"
+        "            raise ImportError(f'{name} is not importable here')\n"
+        "sys.meta_path.insert(0, Block())\n"
         "import pctpu_torch, pctpu_torch.ops.cuda_knn\n"
         "import pctpu_torch.cli.batch_top_part_registration\n"
         "import pctpu_torch.cli.batch_whole_registration, pctpu_torch.pipelines.registration\n"
@@ -393,6 +400,12 @@ def test_port_imports_no_jax():
         "import pctpu_torch.parallel, pctpu_torch.parallel.distributed\n"
         "import pctpu_torch.parallel.mesh, pctpu_torch.runtime.profiler\n"
         "import pctpu_torch.experiments.fuzz_campaign, pctpu_torch.experiments.fuzz_scenes\n"
+        "import pctpu_torch.experiments.reference_parity\n"
+        "import pctpu_torch.experiments.registration_floor\n"
+        "import pctpu_torch.experiments.scaling_bench, pctpu_torch.experiments.sort_ordering\n"
+        "for name in ('torch_end_to_end_demo', 'torch_library_quickstart'):\n"
+        "    spec = importlib.util.spec_from_file_location(name, f'examples/{name}.py')\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "assert pctpu_torch.PCA2D is pctpu_torch.ops.pca2d.PCA2D\n"
         "from pctpu_torch.runtime import native_io\n"
         "assert native_io._lib is None and not native_io._tried\n"
