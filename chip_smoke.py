@@ -26,12 +26,14 @@ Phases, each of which raises on failure (the exit code is then not 0):
    times, the launches a call makes and ptxas's registers.  Zero index
    mismatches and bit-equal results are required.  For each 1-NN case: the warp design
    (``csrc/nn_pruned_warp.cu``) with and without a prepared target, its prep
-   kernel and the earlier block design (the <128, 1024, prod> variant), each
-   against the twin, then CUDA-event times of each (the launches alone and
-   with the wrapper), the pairs the warp design visits (its counting
+   kernel, K4's <128, 1024, prod> instance (``csrc/nn_variant.cu``, K1's
+   shape on the variants' template) and the earlier block design (that
+   instance of K4's first design, ``csrc/nn_pruned.cu``), each against the
+   twin, then CUDA-event times of each (the launches alone and with the
+   wrapper), the pairs the warp design visits (its counting
    instance), the per-query 32-group oracle's pairs and the bound; one pass
    on a prepared target must put at most 3 kernels on the card;
-   ``torch.cdist(q, t).min(1)`` at the fine and whole shapes and at
+   ``torch.cdist(q, t).min(1)`` at the fine shape (both passes), the whole shape and at
    20,000 × 300,000; then K1 over a problem axis — 16 fine problems at the
    49,152 bucket, each on a target of its own (thr 1 m), and 32 coarse
    problems of 8,192 flat points, two yaw guesses on each of 16 targets
@@ -64,7 +66,12 @@ Phases, each of which raises on failure (the exit code is then not 0):
    splits;
 8. the argmin and tile-shape experiment
    (``pctpu_torch.experiments.nn_argmin --quick``): every mode and tile
-   shape bit-equal to its twin before it is timed;
+   shape, in the new design (``csrc/nn_variant.cu``) and the first
+   (``csrc/nn_pruned.cu``), bit-equal to its twin before it is timed, the
+   two designs in turns; ``nn_variant``, ``nn_variant_prep`` and
+   ``nn_variant_v1`` launched; the new prep at every compiled (tt, bf16)
+   bit-equal to its twin on the fine target; ptxas's lines of both
+   designs' kernels, with 0 bytes of spills required of the new ones;
 9. ``batch_multi_bev_gen`` on a ray-cast HDL-64E drive (64 grid-ordered
    clouds, two raw clouds with duplicate cells, one over the grid's
    capacity; ``pctpu_torch.experiments.scene``): the BEV raster (the new
@@ -232,12 +239,16 @@ def print_ptxas(path) -> dict[str, str]:
         if m:
             name = m.group(1)
             tpl = re.findall(r"Li(\d+)E", name)
-            short = re.search(r"(nn_pruned_kernel|nn_fused_(?:v1|prep|main|finish)_kernel|segment_sum_tile_kernel"
+            short = re.search(r"(nn_pruned_kernel|nn_variant_(?:prep|seed|main|finish)_kernel"
+                              r"|nn_fused_(?:v1|prep|main|finish)_kernel|segment_sum_tile_kernel"
                               r"|segment_sum_walk_kernel|segment_fill_kernel"
                               r"|bev_raster_v1_kernel|bev_expand_v1_kernel"
                               r"|bev_raster_kernel|bev_expand_kernel|nn_prep_kernel"
                               r"|nn_seed_kernel|nn_main_kernel|nn_finish_kernel"
                               r"|pca_windows_kernel|pca_moments_kernel)", name)
+            if short:  # the kernel's own template arguments, not its parameters'
+                args = re.match(r"I((?:L[ib]\d+E)+)E", name[short.end():])
+                tpl = re.findall(r"Li(\d+)E", args.group(1)) if args else []
             counting = "ILb1E" in name
             name = (short.group(1) if short else name) + (
                 f"<{','.join(tpl)}>" if tpl else "<counting>" if counting else "")
@@ -395,8 +406,10 @@ def sums_entry(name: str, replaces: str, launches: int, case: dict) -> dict:
 
 def nn_case(name: str, args, md, smi: str) -> dict:
     """One phase-3 case of the bbox-pruned 1-NN: the warp design with and
-    without a prepared target, the prep kernel and the earlier block design
-    (the <128, 1024, prod> variant), each held bit for bit against its twin;
+    without a prepared target, the prep kernel, K4's <128, 1024, prod>
+    instance (``csrc/nn_variant.cu``, K1's shape on the variants' template)
+    and the earlier block design (the same instance of the first design,
+    ``nn_1_pruned_variant_v1``), each held bit for bit against its twin;
     then their times, the pairs the warp design visits (its counting
     instance), the per-query 32-group oracle's pairs and the bound."""
     from pctpu_torch.experiments.card import (NN_FLOP_PER_PAIR, bound_ms, cuda_ms, oracle_pairs,
@@ -416,13 +429,18 @@ def nn_case(name: str, args, md, smi: str) -> dict:
             ("warp design", cuda_knn.nn_1_pruned(*args, max_distance=md)),
             ("warp design, prepared", cuda_knn.nn_1_pruned(q, qm, max_distance=md,
                                                            prepared=prep)),
-            ("block design", cuda_knn.nn_1_pruned_variant(*args, md, cuda_knn.TQ, cuda_knn.TT,
-                                                         "prod"))):
+            ("K4 <128, 1024, prod>", cuda_knn.nn_1_pruned_variant(*args, md, cuda_knn.TQ,
+                                                                  cuda_knn.TT, "prod")),
+            ("block design", cuda_knn.nn_1_pruned_variant_v1(*args, md, cuda_knn.TQ,
+                                                            cuda_knn.TT, "prod"))):
         torch.cuda.synchronize()
         err = max(err, compare(f"{name}: {label}", got, want))
     d2 = want[1]
     launch = cuda_knn._pass_launcher(q, qm, prep, thr2)[0]
     old = cuda_knn._pruned_launcher(q, qm, t, tm, thr2, cuda_knn.TQ, cuda_knn.TT, "prod")[0]
+    variant_prep = cuda_knn.prepare_variant_target(t, tm, cuda_knn.TT)
+    variant = cuda_knn._variant_launcher(q, qm, variant_prep, t, thr2, cuda_knn.TQ,
+                                         cuda_knn.TT, "prod")[0]
     out = {
         "alone": cuda_ms(launch, reps=50),
         "wrapper": cuda_ms(lambda: cuda_knn.nn_1_pruned(q, qm, max_distance=md,
@@ -430,14 +448,20 @@ def nn_case(name: str, args, md, smi: str) -> dict:
         "unprepared": cuda_ms(lambda: cuda_knn.nn_1_pruned(*args, max_distance=md), reps=50),
         "prep": cuda_ms(lambda: cuda_knn.prepare_target(t, tm), reps=50),
         "prep_twin": cuda_ms(lambda: cuda_knn.prepare_target_reference(t, tm), reps=5),
+        "variant_alone": cuda_ms(variant, reps=50),
+        "variant_wrapper": cuda_ms(lambda: cuda_knn.nn_1_pruned_variant(
+            *args, md, cuda_knn.TQ, cuda_knn.TT, "prod"), reps=50),
+        "variant_prep": cuda_ms(lambda: cuda_knn.prepare_variant_target(t, tm, cuda_knn.TT),
+                                reps=50),
         "old_alone": cuda_ms(old, reps=20),
-        "old_wrapper": cuda_ms(lambda: cuda_knn.nn_1_pruned_variant(
+        "old_wrapper": cuda_ms(lambda: cuda_knn.nn_1_pruned_variant_v1(
             *args, md, cuda_knn.TQ, cuda_knn.TT, "prod"), reps=20),
         "twin": cuda_ms(lambda: cuda_knn.nn_1_pruned_reference(*args, max_distance=md),
                         reps=3, warmup=1),
         "err": err, "prep_err": prep_err, "library": None,
     }
     by_kernel = profile_calls(launch, reps=20)[2]
+    variant_by_kernel = profile_calls(variant, reps=20)[2]
     visited = cuda_knn.pairs_visited(q, qm, prep, md)
     oracle = oracle_pairs(q, qm, d2, prep.group_box, thr2)
     nq, nt = q.shape[0], t.shape[0]
@@ -451,14 +475,20 @@ def nn_case(name: str, args, md, smi: str) -> dict:
     print(f"  {name}: Q={nq} T={nt} found={int(torch.isfinite(d2).sum())}; warp design "
           f"alone {out['alone']:.4f} ms, with wrapper {out['wrapper']:.4f} ms, unprepared "
           f"{out['unprepared']:.4f} ms (prep {out['prep']:.4f} ms, its twin "
-          f"{out['prep_twin']:.4f} ms); block design alone {out['old_alone']:.4f} ms, with "
+          f"{out['prep_twin']:.4f} ms); K4 <128, 1024, prod> alone {out['variant_alone']:.4f} "
+          f"ms, with wrapper {out['variant_wrapper']:.4f} ms (its prep "
+          f"{out['variant_prep']:.4f} ms), {out['variant_alone'] / out['alone']:.3f}x K1 "
+          f"alone; block design alone {out['old_alone']:.4f} ms, with "
           f"wrapper {out['old_wrapper']:.4f} ms; twin {out['twin']:.4f} ms; pairs visited "
           f"{visited} ({visited / (nq * nt):.6f} of Q·T), oracle {oracle}; bound "
           f"{out['bound']:.6f} ms ({out['bound_by']}: {n_bytes} B, "
-          f"{NN_FLOP_PER_PAIR * oracle} flop), reached {out['bound'] / out['alone']:.4f}; prep bound "
+          f"{NN_FLOP_PER_PAIR * oracle} flop), reached {out['bound'] / out['alone']:.4f} (K4 "
+          f"<128, 1024, prod> {out['bound'] / out['variant_alone']:.4f}, block design "
+          f"{out['bound'] / out['old_alone']:.4f}); prep bound "
           f"{out['prep_bound']:.6f} ms ({out['prep_bound_by']}: {nt * 13 + target_bytes} B); "
           f"device ms by kernel (torch.profiler) "
-          f"{ {k: round(v, 6) for k, v in by_kernel.items()} }; card {smi}")
+          f"{ {k: round(v, 6) for k, v in by_kernel.items()} }, K4's "
+          f"{ {k: round(v, 6) for k, v in variant_by_kernel.items()} }; card {smi}")
     return out
 
 
@@ -2225,8 +2255,9 @@ def main() -> int:
         (f"{big_t.shape[0]} targets, no thr", (big_q, big_qm, big_t, big_tm), None),
         (f"{big_t.shape[0]} targets, thr 2 m", (big_q, big_qm, big_t, big_tm), 2.0),
     ]
-    print("bbox-pruned 1-NN (K1/K2): the warp design (csrc/nn_pruned_warp.cu) and the "
-          "earlier block design (<128, 1024, prod>) against the twin, bit for bit; ms per pass "
+    print("bbox-pruned 1-NN (K1/K2): the warp design (csrc/nn_pruned_warp.cu), K4's "
+          "<128, 1024, prod> instance (csrc/nn_variant.cu) and the earlier block design (its "
+          "first design, csrc/nn_pruned.cu) against the twin, bit for bit; ms per pass "
           f"(CUDA events); card {smi}")
     nn_err = prep_err = 0.0
     nn_ms = {}
@@ -2245,7 +2276,7 @@ def main() -> int:
     if kernels > 3 or copies:
         raise AssertionError("a pass on a prepared target launches more than 3 kernels")
     # the library yardstick: torch.cdist(q, t).min(1) at the fine and whole shapes
-    for name in ("fine thr 1 m", "whole thr 4 m, yaw guess"):
+    for name in ("fine thr 1 m", "fine fitness (no thr)", "whole thr 4 m, yaw guess"):
         q, _, t, _ = next(a for n, a, _ in nn_cases if n == name)
         nn_ms[name]["library"] = cuda_ms(lambda: torch.cdist(q, t).min(1), reps=3, warmup=1)
         torch.cuda.empty_cache()
@@ -2463,17 +2494,40 @@ def main() -> int:
     _cuda.reset_launch_counts()
     exp = nn_argmin.run(["--quick"])
     torch.cuda.synchronize()
-    variant_launches = _cuda.launch_counts["nn_variant"]
-    require_launched({"nn_variant": variant_launches}, ("nn_variant",), "nn_argmin --quick")
+    variant_launches = {k: _cuda.launch_counts[k]
+                        for k in ("nn_variant", "nn_variant_prep", "nn_variant_v1")}
+    require_launched(variant_launches, tuple(variant_launches), "nn_argmin --quick")
     shapes = {(v["mode"], v["tq"], v["tt"]) for v in exp["variants"]}
     missing = {(m, 256, 1024) for m in nn_argmin.ALL_MODES} | {
         ("prod", tq, tt) for tq, tt in cuda_knn.VARIANT_TILES}
     if missing - shapes:
         raise AssertionError(f"nn_argmin skipped {sorted(missing - shapes)}")
-    anchor = next(v for v in exp["variants"] if v["key"] == "prod_thr")
-    print(f"nn_argmin: {len(exp['variants'])} variants, each bit-equal to its twin; "
-          f"prod thr=1m (256,1024) {anchor['ms_per_pass']:.4f} ms per pass "
-          f"(kernel {anchor['kernel_ms']:.4f} ms), twin {exp['twin_ms']:.4f} ms")
+    by_key = {v["key"]: v for v in exp["variants"]}
+    anchor, k1 = by_key["prod_thr"], by_key["prod_op_thr"]
+    # the new design's prep at every compiled (tt, bf16), on the fine pass's
+    # target
+    variant_prep_err = 0.0
+    for tt, bf16 in sorted(cuda_knn.VARIANT_PREPS):
+        got = cuda_knn.prepare_variant_target(fine_t, fine_tm, tt, bf16)
+        want = cuda_knn.prepare_target_reference(fine_t, fine_tm, tt, bf16)
+        variant_prep_err = max(variant_prep_err, compare(
+            f"K4 prep, tt {tt}{', bf16' if bf16 else ''}",
+            [got.packed, got.group_box, got.tile_box],
+            [want.packed, want.group_box, want.tile_box]))
+    print(f"nn_argmin: {len(exp['variants'])} variants, each bit-equal to its twin in the new "
+          f"design and the first; prod thr=1m (256,1024) {anchor['ms_per_pass']:.4f} ms per "
+          f"pass (kernel {anchor['kernel_ms']:.4f} ms), first design "
+          f"{anchor['v1_ms_per_pass']:.4f} (kernel {anchor['v1_kernel_ms']:.4f}); K1 "
+          f"{k1['ms_per_pass']:.4f} (kernel {k1['kernel_ms']:.4f}); twin "
+          f"{exp['twin_ms']:.4f} ms; launches {variant_launches}; card {smi}")
+    for name, line in ptxas.items():
+        if name.startswith(("nn_variant", "nn_pruned_kernel")):
+            print(f"  ptxas {name}: {line}")
+    spilled = [n for n, line in ptxas.items() if n.startswith("nn_variant")
+               and not line.endswith("spill stores 0 B, loads 0 B")]
+    if spilled or not any(n.startswith("nn_variant_main_kernel") for n in ptxas):
+        raise AssertionError(f"K4's new kernels spill or are missing from ptxas's report: "
+                             f"{spilled}")
 
     # --- 9. batch_multi_bev_gen ----------------------------------------------
     bev_kernels = multi_bev_phase(dev, smi, ptxas=ptxas, clock_mhz=clock_mhz)
@@ -2500,8 +2554,9 @@ def main() -> int:
         return {**entry, "campaign_launches": campaign[entry["name"]],
                 "tools_launches": tools[entry["name"]]}
 
-    # K1, the prep and K4's <128, 1024, prod> on the fine pass at thr 1 m
-    fine = nn_ms["fine thr 1 m"]
+    # K1, the prep and K4's <128, 1024, prod> on the fine pass at thr 1 m (K4
+    # also on the fitness pass)
+    fine, fit = nn_ms["fine thr 1 m"], nn_ms["fine fitness (no thr)"]
     big_fused = fused[0]
     print(json.dumps({"kernels": [with_campaign(k) for k in [
         {"name": "nn_pruned", "route": "cuda", "source": "pctpu_torch/csrc/nn_pruned_warp.cu",
@@ -2539,11 +2594,23 @@ def main() -> int:
          "bound_ms": big_fused["bound"][0], "bound_by": big_fused["bound"][1],
          "library_ms": big_fused["library_ms"], "wrapper_ms": big_fused["wrapper_ms"],
          "v1_ms": big_fused["v1_ms"]},
-        {"name": "nn_variant", "route": "cuda", "source": "pctpu_torch/csrc/nn_pruned.cu",
-         "replaces": "scripts/exp_nn_argmin.py:118", "launches": variant_launches,
-         "max_abs_err": max(exp["max_abs_err"], nn_err), "ms": fine["old_alone"],
+        {"name": "nn_variant", "route": "cuda", "source": "pctpu_torch/csrc/nn_variant.cu",
+         "replaces": "scripts/exp_nn_argmin.py:118", "launches": variant_launches["nn_variant"],
+         "max_abs_err": max(exp["max_abs_err"], nn_err), "ms": fine["variant_alone"],
          "plain_ms": fine["twin"], "bound_ms": fine["bound"], "bound_by": fine["bound_by"],
-         "library_ms": fine["library"]},
+         "library_ms": fine["library"], "wrapper_ms": fine["variant_wrapper"],
+         "v1_ms": fine["old_alone"], "v1_wrapper_ms": fine["old_wrapper"],
+         "v1_launches": variant_launches["nn_variant_v1"], "k1_ms": fine["alone"],
+         "fitness_ms": fit["variant_alone"], "fitness_v1_ms": fit["old_alone"],
+         "fitness_plain_ms": fit["twin"], "fitness_bound_ms": fit["bound"],
+         "fitness_bound_by": fit["bound_by"], "fitness_library_ms": fit["library"],
+         "fitness_k1_ms": fit["alone"]},
+        {"name": "nn_variant_prep", "route": "cuda", "source": "pctpu_torch/csrc/nn_variant.cu",
+         "replaces": "scripts/exp_nn_argmin.py:118",
+         "launches": variant_launches["nn_variant_prep"], "max_abs_err": variant_prep_err,
+         "ms": fine["variant_prep"], "plain_ms": fine["prep_twin"],
+         "bound_ms": fine["prep_bound"], "bound_by": fine["prep_bound_by"],
+         "library_ms": None},
         *({**k, **parallel_launches(sharded, k["name"])} for k in bev_kernels),
         pca_kernel,
     ]]}))

@@ -6,12 +6,15 @@
 // nn_pruned_kernel<TQ, TT, MODE>: exact bbox-pruned 1-NN of spatially
 //    (Morton) sorted queries in a spatially sorted target.
 //
-//    Its instances (pctpu_nn_variant) replace the TPU kernel
-//    scripts/exp_nn_argmin.py:118 (make_kernel(...).kernel): one block-wide
-//    loop with several argmin bodies and tile shapes.  The <128, 1024, kProd>
-//    instance is the first Hopper form of the production 1-NN (the TPU
-//    kernels pctpu/ops/pallas_knn.py:275 and :221); csrc/nn_pruned_warp.cu
-//    took that place, and this instance stays as its yardstick.  Every MODE
+//    The first Hopper design of the TPU kernel scripts/exp_nn_argmin.py:118
+//    (make_kernel(...).kernel): one block-wide loop with several argmin
+//    bodies and tile shapes.  csrc/nn_variant.cu took its place (the same
+//    instances on K1's warp design); this one stays as pctpu_nn_variant_v1,
+//    so that the first design, the new one and the twin can be held and
+//    timed in one call.  Its <128, 1024, kProd> instance is also the first
+//    Hopper form of the production 1-NN (the TPU kernels
+//    pctpu/ops/pallas_knn.py:275 and :221), csrc/nn_pruned_warp.cu's
+//    yardstick.  Every MODE
 //    returns the same winners; they differ in how the per-tile argmin is
 //    formed:
 //      kProd       running (d², index) pair, one compare per target;
@@ -287,11 +290,11 @@ extern "C" {
 // The launchers return cudaGetLastError() right after the launch: a launch
 // the card refuses never runs, and a later synchronize would not report it.
 
-int pctpu_nn_variant(const float* q, const uint8_t* qmask, int64_t nq,
-                     const float* t, const uint8_t* tmask, int64_t nt,
-                     const float* qbox, int64_t tq, const float* tbox, int64_t tt,
-                     int mode, float thr2, float* out_val, int32_t* out_idx,
-                     void* stream) {
+int pctpu_nn_variant_v1(const float* q, const uint8_t* qmask, int64_t nq,
+                        const float* t, const uint8_t* tmask, int64_t nt,
+                        const float* qbox, int64_t tq, const float* tbox, int64_t tt,
+                        int mode, float thr2, float* out_val, int32_t* out_idx,
+                        void* stream) {
   for (const Instance& in : kInstances)
     if (in.tq == tq && in.tt == tt && in.mode == mode)
       return in.fn(q, qmask, nq, t, tmask, nt, qbox, tbox, thr2, out_val, out_idx,

@@ -29,30 +29,38 @@ instead compares |t|² − 2q·t scores, so its winner can differ inside the
 score-tie window ~4·|p|²·2⁻²³ (pallas_knn.py:355-365), and beyond the
 threshold it returns +inf or a finite d² > thr²; ICP rejects both alike.
 
-``nn_1_pruned_variant`` launches the instances of the block-wide template
-``csrc/nn_pruned.cu`` (the port of ``exp_nn_argmin.py``'s ``nn_variant``;
-its (128, 1024, "prod") instance is the earlier Hopper form of
-``nn_1_pruned``): a tile shape from ``VARIANT_TILES`` and an argmin body,
-named as the script names its modes:
+``nn_1_pruned_variant`` launches the instances of ``csrc/nn_variant.cu``
+(the port of ``exp_nn_argmin.py``'s ``nn_variant``): K1's warp design
+(prep, seed, main grid, finish) with a query block of ``tq`` (tq / 32 warps,
+each with its own box and bound), work items of ``tt`` target points (tt /
+32 groups) and an argmin body for the scanned group, named as the script
+names its modes; its (128, 1024, "prod") instance is K1's own shape:
 
   ==============  ==========================================  ==================
-  script mode     Hopper form (``csrc/nn_pruned.cu``)         twin
+  script mode     argmin body of a staged 32-point group      twin
   ==============  ==========================================  ==================
   prod            K1's body: running (d², index) pair         nn_1_pruned_reference
-  explicit2       per tile min d², then the lowest index      nn_1_pruned_reference
+  explicit2       min d² first, then the lowest index         nn_1_pruned_reference
                   reaching it
   onehot_exact    min of the 64-bit key (d² bits << 32 |      nn_1_pruned_reference
                   index)
   onehot_mxu      the TPU's speed probe of the same idea:     nn_1_pruned_reference
                   runs the onehot_exact body
-  bf16            tiles staged as bf16 coordinates, widened   nn_1_pruned_bf16_reference
+  bf16            target packed as bf16 coordinates, widened  nn_1_pruned_bf16_reference
                   to f32 for the same fma chain
   ==============  ==========================================  ==================
 
 The exact modes keep the contract above at every tile shape.  ``bf16``
 picks winners on the coordinates rounded to bf16 (queries and targets;
 boxes from the rounded points, so the pruning stays exact for them) and
-returns the winner's d² re-derived from the f32 coordinates.
+returns the winner's d² re-derived from the f32 coordinates.  A call on the
+card is the prep (``prepare_variant_target``, counted ``nn_variant_prep``)
+and one pass of three launches (counted ``nn_variant``), with no torch op
+between them but the outputs' and scratch's allocation.
+``nn_1_pruned_variant_v1`` runs the same instances in the first design,
+one block walking every target tile (``csrc/nn_pruned.cu``, counted
+``nn_variant_v1``), so that old, new and twin are held and timed in one
+call.
 
 ``nn_1_fused`` launches ``csrc/nn_fused.cu`` (it replaces the TPU kernel
 ``_nn_kernel`` of ``pallas_nn_1``): the unpruned 1-NN on the score
@@ -102,6 +110,9 @@ VARIANTS = frozenset((tq, tt, name) for tq, tt, code in _cuda.NN_INSTANCES
                      for name, c in MODES.items() if c == code)
 VARIANT_TILES = tuple((tq, tt) for tq, tt, code in _cuda.NN_INSTANCES
                       if code == MODES["prod"])
+# the (tt, bf16) of the compiled preps: one for each tile of the instances,
+# bf16 where a bf16 instance has that tile
+VARIANT_PREPS = frozenset((tt, code == MODES["bf16"]) for _, tt, code in _cuda.NN_INSTANCES)
 
 
 def morton_sort_key(xyz: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -172,7 +183,9 @@ class PreparedTarget:
     +inf coordinates for masked and padding points; ``group_box`` and
     ``tile_box``, (8, groups) and (8, tiles) f32 in ``_tile_bboxes``' layout
     over 32- and 1,024-point runs, with −0 stored as +0; ``n`` the target's
-    length."""
+    length.  :func:`prepare_variant_target` makes the same for the variants,
+    with tiles of tt points, and for ``bf16`` a bfloat16 ``packed`` of the
+    rounded coordinates."""
 
     packed: torch.Tensor
     group_box: torch.Tensor
@@ -180,14 +193,21 @@ class PreparedTarget:
     n: int
 
 
-def prepare_target_reference(target: torch.Tensor, target_mask: torch.Tensor) -> PreparedTarget:
-    """Plain torch twin of the prep kernel (``nn_prep_kernel``)."""
-    xyz, m = _pad_rows(target, TT), _pad_rows(target_mask, TT)
+def prepare_target_reference(target: torch.Tensor, target_mask: torch.Tensor,
+                             tile: int = TT, bf16: bool = False) -> PreparedTarget:
+    """Plain torch twin of the prep kernels (``nn_prep_kernel``; with
+    ``tile`` and ``bf16``, ``nn_variant_prep_kernel``): tiles of ``tile``
+    points; ``bf16`` packs the coordinates rounded to bf16 as a bfloat16
+    (n, 4) tensor and builds the boxes from the rounded points."""
+    xyz, m = _pad_rows(target, tile), _pad_rows(target_mask, tile)
+    if bf16:
+        xyz = _bf16(xyz)
     pts = torch.where(m[:, None], xyz, float("inf"))
     packed = torch.cat([pts, torch.zeros_like(pts[:, :1])], dim=1)
-    # + 0.0 turns a −0 into +0, as the kernel does
-    return PreparedTarget(packed, _tile_bboxes(xyz, m, GROUP) + 0.0,
-                          _tile_bboxes(xyz, m, TT) + 0.0, target.shape[0])
+    # + 0.0 turns a −0 into +0, as the kernels do
+    return PreparedTarget(packed.to(torch.bfloat16) if bf16 else packed,
+                          _tile_bboxes(xyz, m, GROUP) + 0.0,
+                          _tile_bboxes(xyz, m, tile) + 0.0, target.shape[0])
 
 
 def prepare_target(target: torch.Tensor, target_mask: torch.Tensor) -> PreparedTarget:
@@ -474,48 +494,124 @@ def pairs_visited(query, query_mask, prepared, max_distance=None) -> int:
     return int(counter.item())
 
 
-def _pruned_launcher(query, query_mask, target, target_mask, thr2, tq, tt, mode):
-    """Validate CUDA inputs for one instance of ``csrc/nn_pruned.cu``, build
-    the tile boxes and the outputs.  Returns (launch, val, idx): each
-    ``launch()`` runs the kernel into the raw outputs (best d², index) and
-    counts the launch."""
+def _check_variant(name: str, tq: int, tt: int, mode: str) -> None:
+    if (tq, tt, mode) not in VARIANTS:
+        raise ValueError(f"{name}: ({tq}, {tt}, {mode!r}) is not compiled (see "
+                         "cuda_knn.VARIANTS)")
+
+
+def _variant_twin(query, query_mask, target, target_mask, max_distance, mode):
+    twin = nn_1_pruned_bf16_reference if mode == "bf16" else nn_1_pruned_reference
+    return twin(query, query_mask, target, target_mask, max_distance)
+
+
+def prepare_variant_target(target: torch.Tensor, target_mask: torch.Tensor, tt: int,
+                           bf16: bool = False) -> PreparedTarget:
+    """Pack ``target`` (T, 3) f32 and ``target_mask`` (T,) bool for the
+    variants of tile ``tt`` (``bf16`` for the ``bf16`` mode): ``packed``
+    (⌈T / tt⌉·tt, 4) f32, or bfloat16 for ``bf16``, and the boxes of each
+    32-point group and tt-point tile.  CUDA tensors launch the prep kernel of
+    ``csrc/nn_variant.cu`` (or raise), counted ``nn_variant_prep``; CPU
+    tensors run :func:`prepare_target_reference`.  A (tt, bf16) that no
+    compiled instance has (``VARIANT_PREPS``) raises ValueError."""
+    if (tt, bool(bf16)) not in VARIANT_PREPS:
+        raise ValueError(f"prepare_variant_target: no compiled instance has tt={tt}"
+                         f"{' in bf16' if bf16 else ''} (see cuda_knn.VARIANTS)")
+    dev = target.device
+    if dev.type == "cpu":
+        return prepare_target_reference(target, target_mask, tt, bf16)
+    if dev.type != "cuda":
+        raise ValueError(f"prepare_variant_target: unsupported device {dev}")
+    n = target.shape[0]
+    _cuda.require(target, "target", torch.float32, (-1, 3), dev)
+    _cuda.require(target_mask, "target_mask", torch.bool, (n,), dev)
+    tiles = -(-n // tt)
+    if not 0 < tiles <= 65535:
+        raise ValueError(f"prepare_variant_target: unsupported size T={n} at tt={tt}")
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    packed = torch.empty((tiles * tt, 4), dtype=dtype, device=dev)
+    group_box = torch.empty((8, tiles * tt // GROUP), dtype=torch.float32, device=dev)
+    tile_box = torch.empty((8, tiles), dtype=torch.float32, device=dev)
+    rc = _cuda.library().pctpu_nn_variant_prep(
+        target.data_ptr(), target_mask.data_ptr(), n, tt, int(bf16), packed.data_ptr(),
+        group_box.data_ptr(), tile_box.data_ptr(), _cuda.stream_ptr(dev))
+    _cuda.check(rc, "nn_variant_prep")
+    return PreparedTarget(packed, group_box, tile_box, n)
+
+
+def _variant_launcher(query, query_mask, prepared, target, thr2, tq, tt, mode):
+    """Validate CUDA queries for a pass of instance (tq, tt, mode) of
+    ``csrc/nn_variant.cu`` on ``prepared`` (:func:`prepare_variant_target`
+    at ``tt``, bf16 for ``bf16``) and allocate its outputs and scratch;
+    ``target`` is the f32 target, read for ``bf16``'s d² (else ignored).
+    Returns (launch, idx, d2): each ``launch()`` runs the pass (seed, main
+    and finish) into the outputs and counts one ``nn_variant``."""
+    _check_variant("nn_variant", tq, tt, mode)
     dev = query.device
     if dev.type != "cuda":
-        raise ValueError(f"the nn_variant kernel needs CUDA tensors, got {dev}")
+        raise ValueError(f"the nn_variant kernels need CUDA tensors, got {dev}")
+    nq = query.shape[0]
+    _cuda.require(query, "query", torch.float32, (-1, 3), dev)
+    _cuda.require(query_mask, "query_mask", torch.bool, (nq,), dev)
+    tiles = prepared.tile_box.shape[-1]
+    bf16 = mode == "bf16"
+    _cuda.require(prepared.packed, "prepared.packed", torch.bfloat16 if bf16 else torch.float32,
+                  (tiles * tt, 4), dev)
+    _cuda.require(prepared.group_box, "prepared.group_box", torch.float32,
+                  (8, tiles * tt // GROUP), dev)
+    _cuda.require(prepared.tile_box, "prepared.tile_box", torch.float32, (8, tiles), dev)
+    if bf16:
+        _cuda.require(target, "target", torch.float32, (prepared.n, 3), dev)
+    if not 0 < nq < 2**31 - 256:
+        raise ValueError(f"nn_variant: unsupported size Q={nq}")
+    idx = torch.empty((nq,), dtype=torch.int32, device=dev)
+    d2 = torch.empty((nq,), dtype=torch.float32, device=dev)
+    # the query warps' boxes (four words each), then one 64-bit key a query
+    scratch = torch.empty((4 * -(-nq // 32) + nq,), dtype=torch.int64, device=dev)
+    lib = _cuda.library()
+    ptrs = (prepared.packed.data_ptr(), prepared.group_box.data_ptr(),
+            prepared.tile_box.data_ptr())
+    t32 = target.data_ptr() if bf16 else None
+
+    def launch():
+        rc = lib.pctpu_nn_variant(
+            query.data_ptr(), query_mask.data_ptr(), nq, *ptrs, tiles, tq, tt, MODES[mode],
+            thr2, t32, scratch.data_ptr(), idx.data_ptr(), d2.data_ptr(),
+            _cuda.stream_ptr(dev))
+        _cuda.check(rc, "nn_variant")
+
+    return launch, idx, d2
+
+
+def _pruned_launcher(query, query_mask, target, target_mask, thr2, tq, tt, mode):
+    """Validate CUDA inputs for one instance of the first design
+    (``csrc/nn_pruned.cu``), build the tile boxes and the outputs.  Returns
+    (launch, val, idx): each ``launch()`` runs the kernel into the raw
+    outputs (best d², index) and counts one ``nn_variant_v1``."""
+    dev = query.device
+    if dev.type != "cuda":
+        raise ValueError(f"the nn_variant_v1 kernel needs CUDA tensors, got {dev}")
     nq, nt = query.shape[0], target.shape[0]
     _cuda.require(query, "query", torch.float32, (-1, 3), dev)
     _cuda.require(query_mask, "query_mask", torch.bool, (nq,), dev)
     _cuda.require(target, "target", torch.float32, (-1, 3), dev)
     _cuda.require(target_mask, "target_mask", torch.bool, (nt,), dev)
     if nq == 0 or nt == 0 or nt >= 2**31:
-        raise ValueError(f"nn_variant: unsupported sizes Q={nq}, T={nt}")
+        raise ValueError(f"nn_variant_v1: unsupported sizes Q={nq}, T={nt}")
     q_box = _tile_bboxes(_pad_rows(query, tq), _pad_rows(query_mask, tq), tq)
     t_box = _tile_bboxes(_pad_rows(target, tt), _pad_rows(target_mask, tt), tt)
     val = torch.empty((nq,), dtype=torch.float32, device=dev)
     idx = torch.empty((nq,), dtype=torch.int32, device=dev)
-    fn = _cuda.library().pctpu_nn_variant
+    fn = _cuda.library().pctpu_nn_variant_v1
 
     def launch():
         rc = fn(query.data_ptr(), query_mask.data_ptr(), nq,
                 target.data_ptr(), target_mask.data_ptr(), nt,
                 q_box.data_ptr(), tq, t_box.data_ptr(), tt, MODES[mode], thr2,
                 val.data_ptr(), idx.data_ptr(), _cuda.stream_ptr(dev))
-        _cuda.check(rc, "nn_variant")
+        _cuda.check(rc, "nn_variant_v1")
 
     return launch, val, idx
-
-
-def _pruned(query, query_mask, target, target_mask, max_distance, tq, tt, mode):
-    """The CUDA path of :func:`nn_1_pruned_variant`: launch, then the shared
-    epilogue.  For ``bf16`` the kernel gets the rounded points, so its boxes
-    and the threshold test use what it compares, and the winners' d² come
-    from the f32 points."""
-    thr2 = _thr2(max_distance)
-    q, t = (_bf16(query), _bf16(target)) if mode == "bf16" else (query, target)
-    launch, val, idx = _pruned_launcher(q, query_mask, t, target_mask, thr2, tq, tt, mode)
-    launch()
-    idx, d2 = _finish(q, query_mask, t, target_mask, idx, val < _BIG / 2, thr2)
-    return _rescore(query, target, idx, d2) if mode == "bf16" else (idx, d2)
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -553,15 +649,47 @@ def nn_1_pruned_variant(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One variant of the pruned 1-NN (see the module docstring): a
     compiled (tq, tt, mode) from ``VARIANTS``, or ValueError.  CUDA tensors
-    launch that kernel instance (or raise); CPU tensors run the mode's twin,
-    which does not depend on the tile shape."""
-    if (tq, tt, mode) not in VARIANTS:
-        raise ValueError(f"nn_1_pruned_variant: ({tq}, {tt}, {mode!r}) is not "
-                         "compiled (see cuda_knn.VARIANTS)")
+    launch that instance of ``csrc/nn_variant.cu`` — its prep, then one pass
+    — (or raise); CPU tensors run the mode's twin, which does not depend on
+    the tile shape."""
+    _check_variant("nn_1_pruned_variant", tq, tt, mode)
     if query.device.type == "cpu":
-        twin = nn_1_pruned_bf16_reference if mode == "bf16" else nn_1_pruned_reference
-        return twin(query, query_mask, target, target_mask, max_distance)
-    return _pruned(query, query_mask, target, target_mask, max_distance, tq, tt, mode)
+        return _variant_twin(query, query_mask, target, target_mask, max_distance, mode)
+    prepared = prepare_variant_target(target, target_mask, tt, mode == "bf16")
+    launch, idx, d2 = _variant_launcher(query, query_mask, prepared, target,
+                                        _thr2(max_distance), tq, tt, mode)
+    launch()
+    return idx, d2
+
+
+def nn_1_pruned_variant_v1(
+    query: torch.Tensor,
+    query_mask: torch.Tensor,
+    target: torch.Tensor,
+    target_mask: torch.Tensor,
+    max_distance: float | None,
+    tq: int,
+    tt: int,
+    mode: str,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`nn_1_pruned_variant` by the first design's kernel
+    (``csrc/nn_pruned.cu``: the wrapper builds both box planes, one block
+    walks every target tile, and a torch epilogue re-derives the d²), kept
+    so that the card tests and ``chip_smoke.py`` can hold old, new and twin
+    in one call.  CUDA tensors launch it (or raise); CPU tensors run the
+    same twin."""
+    _check_variant("nn_1_pruned_variant_v1", tq, tt, mode)
+    if query.device.type == "cpu":
+        return _variant_twin(query, query_mask, target, target_mask, max_distance, mode)
+    thr2 = _thr2(max_distance)
+    # bf16: the kernel gets the rounded points, so its boxes and the
+    # threshold test use what it compares; the winners' d² come from the f32
+    # points
+    q, t = (_bf16(query), _bf16(target)) if mode == "bf16" else (query, target)
+    launch, val, idx = _pruned_launcher(q, query_mask, t, target_mask, thr2, tq, tt, mode)
+    launch()
+    idx, d2 = _finish(q, query_mask, t, target_mask, idx, val < _BIG / 2, thr2)
+    return _rescore(query, target, idx, d2) if mode == "bf16" else (idx, d2)
 
 
 def _finish_fused(query, query_mask, target, target_mask, idx):

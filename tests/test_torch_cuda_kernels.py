@@ -101,7 +101,7 @@ def test_nn_pruned_warp_cases(dev, md):
         assert _bit_equal(tk.nn_1_pruned(*args, max_distance=md), want), (name, md)
         assert _bit_equal(tk.nn_1_pruned(*args[:2], max_distance=md, prepared=prep),
                           want), (name, md)
-        assert _bit_equal(tk.nn_1_pruned_variant(*args, md, tk.TQ, tk.TT, "prod"), want), (name, md)
+        assert _bit_equal(tk.nn_1_pruned_variant_v1(*args, md, tk.TQ, tk.TT, "prod"), want), (name, md)
         visited = tk.pairs_visited(args[0], args[1], prep, md)
         assert 0 <= visited <= 1024 * -(-args[0].shape[0] // 32) * (prep.packed.shape[0] // 32 + 1)
 
@@ -183,14 +183,115 @@ def test_nn_pruned_batched(dev, md):
                                                                   tm.repeat(3, 1)))
 
 
+def _variant_twin(mode):
+    return tk.nn_1_pruned_bf16_reference if mode == "bf16" else tk.nn_1_pruned_reference
+
+
 @pytest.mark.cuda
 def test_nn_variant(dev):
+    """Every instance, in the new design (csrc/nn_variant.cu) and the first
+    (csrc/nn_pruned.cu), against its twin, bit for bit."""
     args = _sorted_scene(dev)
     for tq, tt, mode in sorted(tk.VARIANTS):
-        twin = tk.nn_1_pruned_bf16_reference if mode == "bf16" else tk.nn_1_pruned_reference
         for md in (2.0, None):
+            want = _variant_twin(mode)(*args, max_distance=md)
             assert _bit_equal(tk.nn_1_pruned_variant(*args, md, tq, tt, mode),
-                              twin(*args, max_distance=md)), (tq, tt, mode, md)
+                              want), (tq, tt, mode, md)
+            assert _bit_equal(tk.nn_1_pruned_variant_v1(*args, md, tq, tt, mode),
+                              want), (tq, tt, mode, md, "v1")
+
+
+def _variant_cases(dev):
+    """(name, (query, query_mask, target, target_mask)) of the variants'
+    edge cases.  The NaN case keeps NaN to the queries and to masked
+    targets: for a NaN in a valid target the kernels skip it (a NaN d²
+    never wins a strict <) where the twin's torch.min returns NaN for the
+    whole row (ROADMAP Queue 3, F13)."""
+    rng = np.random.default_rng(13)
+    q, qm, t, tm = _sorted_scene(dev)
+    short_t, short_tm = tk.spatial_sort_payload(*_cloud(rng, 700, dev))
+    ragged = 2 * 4096 + 3 * 1024 + 32 * 5 + 7  # T no multiple of 32, 1,024 or 4,096
+    bad_q, bad_t = q[:3000].clone(), t[:ragged].clone()
+    bad_q[5, 2] = float("nan")
+    bad_q[9, 0] = float("inf")
+    bad_q[40, 1] = -float("inf")
+    bad_t[100, 1] = float("nan")
+    bad_t[4000, 0] = float("inf")
+    bad_t[8000, 2] = -float("inf")
+    bad_tm = torch.ones(ragged, dtype=torch.bool, device=dev)
+    bad_tm[100] = False
+    return [
+        ("T < tt", (q, qm, short_t, short_tm)),
+        ("T ragged", (q, qm, t[:ragged], tm[:ragged])),
+        ("all-masked queries", (q, torch.zeros_like(qm), t, tm)),
+        ("all-masked target", (q, qm, t, torch.zeros_like(tm))),
+        ("ties across groups and tiles", _ties(dev)),
+        ("Q = 1", (q[:1], torch.ones(1, dtype=torch.bool, device=dev), t, tm)),
+        ("NaN and inf coordinates", (bad_q, torch.ones(3000, dtype=torch.bool, device=dev),
+                                     bad_t, bad_tm)),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("md", [None, 2.0])
+def test_nn_variant_cases(dev, md):
+    """The edge cases through every instance, new design and first, against
+    the twin bit for bit."""
+    for name, args in _variant_cases(dev):
+        twins = {mode: _variant_twin(mode)(*args, max_distance=md)
+                 for mode in ("prod", "bf16")}
+        for tq, tt, mode in sorted(tk.VARIANTS):
+            want = twins["bf16" if mode == "bf16" else "prod"]
+            assert _bit_equal(tk.nn_1_pruned_variant(*args, md, tq, tt, mode),
+                              want), (name, tq, tt, mode, md)
+            assert _bit_equal(tk.nn_1_pruned_variant_v1(*args, md, tq, tt, mode),
+                              want), (name, tq, tt, mode, md, "v1")
+        torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_nn_variant_prep(dev):
+    """The new design's prep at every compiled (tt, bf16) against its twin
+    bit for bit: −0 coordinates, a masked group and a
+    fully masked tile, T below, at and past a tile."""
+    rng = np.random.default_rng(14)
+    for n in (1, 1000, 4096, 9000):
+        xyz, mask = _cloud(rng, n, dev)
+        xyz[: min(n, 7)] = -0.0
+        mask[min(n, 64):min(n, 128)] = False
+        mask[min(n, 4096):min(n, 8192)] = False
+        for tt, bf16 in sorted(tk.VARIANT_PREPS):
+            got = tk.prepare_variant_target(xyz, mask, tt, bf16)
+            want = tk.prepare_target_reference(xyz, mask, tt, bf16)
+            assert got.n == want.n == n
+            assert got.packed.dtype == want.packed.dtype
+            for a, b in ((got.packed, want.packed), (got.group_box, want.group_box),
+                         (got.tile_box, want.tile_box)):
+                assert a.shape == b.shape, (n, tt, bf16)
+                bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+                assert torch.equal(a.view(bits), b.view(bits)), (n, tt, bf16)
+        torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_nn_variant_tq1024_launches(dev):
+    """The instances of 1,024-query blocks (32 warps, 64 registers a thread)
+    launch, on a grid of many such blocks, and count one pass each: a launch
+    the card refuses raises from its wrapper."""
+    from pctpu_torch.ops import _cuda
+
+    rng = np.random.default_rng(15)
+    args = (*tk.spatial_sort_payload(*_cloud(rng, 40000, dev)),
+            *tk.spatial_sort_payload(*_cloud(rng, 40000, dev)))
+    want = tk.nn_1_pruned_reference(*args, max_distance=2.0)
+    wide = sorted(v for v in tk.VARIANTS if v[0] == 1024)
+    assert wide
+    for tq, tt, mode in wide:
+        before = _cuda.launch_counts["nn_variant"]
+        got = tk.nn_1_pruned_variant(*args, 2.0, tq, tt, mode)
+        torch.cuda.synchronize()
+        assert _cuda.launch_counts["nn_variant"] == before + 1
+        assert _bit_equal(got, want), (tq, tt, mode)
 
 
 def _fused_cases(dev):

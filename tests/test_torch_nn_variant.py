@@ -1,9 +1,11 @@
 """The argmin and tile-shape variants of the pruned 1-NN
 (``cuda_knn.nn_1_pruned_variant``, the port of ``scripts/exp_nn_argmin.py``)
-against pctpu's production Pallas kernel.
+against pctpu's production Pallas kernel, and the new design's prep
+(``cuda_knn.prepare_variant_target``) against pctpu's box planes.
 
 On the CPU a variant runs its mode's twin, which does not depend on the
-tile shape.  Each is held against ``pallas_nn_1_pruned(..., kernel="loop",
+tile shape, in the new design (``nn_1_pruned_variant``) and the first
+(``nn_1_pruned_variant_v1``) alike.  Each is held against ``pallas_nn_1_pruned(..., kernel="loop",
 tq=256, tt=1024, interpret=True)`` on the script's CPU-check scene (seed 5,
 1,800 points in a 2,048 bucket, targets = queries + N(0, 0.4 m)).  The exact
 modes pick the same winner as pctpu on every query whose best and
@@ -66,12 +68,12 @@ def _variant(mode, md, tq=256, tt=1024):
                  tk.nn_1_pruned_variant(_t(q), _t(qm), _t(t), _t(tm), md, tq, tt, mode))
 
 
-@pytest.mark.parametrize("md", [1.0, None])
-@pytest.mark.parametrize("mode", ["prod", "explicit2", "onehot_exact", "onehot_mxu"])
-def test_exact_modes_match_pallas(mode, md):
+def _check_exact(i_t, d_t, md):
+    """An exact mode's result against pctpu's kernel: the same winner on
+    every query outside pctpu's score window, bit-equal d² wherever the
+    indices agree, and the production op's result."""
     q, qm, t, tm = _scene()
     i_p, d_p = _pallas(md)
-    i_t, d_t = _variant(mode, md)
     thr2 = np.inf if md is None else np.float32(md) ** 2
     found = np.isfinite(d_t)
     sure = qm & _unambiguous(q, t, tm)
@@ -89,10 +91,16 @@ def test_exact_modes_match_pallas(mode, md):
 
 
 @pytest.mark.parametrize("md", [1.0, None])
-def test_bf16_mode(md):
+@pytest.mark.parametrize("mode", ["prod", "explicit2", "onehot_exact", "onehot_mxu"])
+def test_exact_modes_match_pallas(mode, md):
+    _check_exact(*_variant(mode, md), md)
+
+
+def _check_bf16(i_t, d_t, md):
+    """The bf16 mode's result against pctpu's kernel by the script's rule,
+    and against its own contract."""
     q, qm, t, tm = _scene()
     i_p, d_p = _pallas(md)
-    i_t, d_t = _variant("bf16", md)
     # the script's rule (exp_nn_argmin.py:386-392) on the queries pctpu
     # accepts: its finite d² past the threshold are no correspondence
     valid = np.isfinite(d_p) & (d_p <= (np.inf if md is None else np.float32(md) ** 2))
@@ -109,6 +117,116 @@ def test_bf16_mode(md):
     np.testing.assert_array_equal(d_t[ok], want)
 
 
+@pytest.mark.parametrize("md", [1.0, None])
+def test_bf16_mode(md):
+    _check_bf16(*_variant("bf16", md), md)
+
+
+VARIANTS = sorted(tk.VARIANTS)
+VARIANT_TTS = sorted({tt for _, tt in tk.VARIANT_TILES})
+
+
+@pytest.mark.parametrize("md", [1.0, None])
+@pytest.mark.parametrize("variant", VARIANTS, ids=lambda v: "-".join(map(str, v)))
+def test_every_instance_matches_pallas(variant, md):
+    """Each compiled (tq, tt, mode), as the CPU runs it, against pctpu's
+    loop kernel under the rules above (its mode's rule)."""
+    tq, tt, mode = variant
+    got = _variant(mode, md, tq, tt)
+    (_check_bf16 if mode == "bf16" else _check_exact)(*got, md)
+
+
+@pytest.mark.parametrize("md", [1.0, None])
+@pytest.mark.parametrize("variant", VARIANTS, ids=lambda v: "-".join(map(str, v)))
+def test_v1_is_the_same_twin_on_cpu(variant, md):
+    """The first design's wrapper runs the same twin on CPU tensors as the
+    new design's, bit for bit."""
+    q, qm, t, tm = map(_t, _scene())
+    a = tk.nn_1_pruned_variant(q, qm, t, tm, md, *variant)
+    b = tk.nn_1_pruned_variant_v1(q, qm, t, tm, md, *variant)
+    twin = tk.nn_1_pruned_bf16_reference if variant[2] == "bf16" else tk.nn_1_pruned_reference
+    c = twin(q, qm, t, tm, md)
+    for x, y, z in zip(a, b, c):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+        assert torch.equal(x.view(torch.int32), z.view(torch.int32))
+
+
+def _masked_tiles_scene():
+    """9,000 points, 1,000 of them padding, with whole 1,024- and 4,096-point
+    tiles, a group and single points masked, and −0 coordinates."""
+    rng = np.random.default_rng(11)
+    xyz = rng.uniform(-60, 60, (9000, 3)).astype(np.float32)
+    xyz[:5] = -0.0
+    xyz[40, 1] = -0.0
+    m = np.ones(9000, bool)
+    m[1024:2048] = False
+    m[4096:8192] = False
+    m[300:332] = False
+    m[8000:] = False
+    m[17] = False
+    return xyz, m
+
+
+@pytest.mark.parametrize("scene", ["cpu_check", "masked_tiles"])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("tt", VARIANT_TTS)
+def test_variant_prep_boxes_equal_pctpu(tt, bf16, scene):
+    """The new design's prep twin (``prepare_target_reference(..., tile=tt,
+    bf16=)``, the CPU path of ``prepare_variant_target``): its group and
+    tile boxes equal pctpu's ``_tile_bboxes`` over 32 and tt points of the
+    target (bf16-rounded for bf16), the impossible box (3e38, −3e38) for a
+    tile or group with no valid point, −0 equal to +0."""
+    xyz, m = (_scene()[2:] if scene == "cpu_check" else _masked_tiles_scene())
+    prep = tk.prepare_target_reference(_t(xyz), _t(m), tt, bf16)
+    if (tt, bf16) in tk.VARIANT_PREPS:  # a compiled prep: its CPU path is the twin
+        same = tk.prepare_variant_target(_t(xyz), _t(m), tt, bf16)
+        for a, b in ((same.packed, prep.packed), (same.group_box, prep.group_box),
+                     (same.tile_box, prep.tile_box)):
+            assert torch.equal(a, b)
+    else:
+        with pytest.raises(ValueError, match="no compiled instance"):
+            tk.prepare_variant_target(_t(xyz), _t(m), tt, bf16)
+    n_pad = -(-len(xyz) // tt) * tt
+    pts = xyz.astype(jnp.bfloat16).astype(np.float32) if bf16 else xyz
+    pad_x = np.zeros((n_pad, 3), np.float32)
+    pad_x[:len(xyz)] = pts
+    pad_m = np.zeros(n_pad, bool)
+    pad_m[:len(xyz)] = m
+    for got, tile in ((prep.group_box, 32), (prep.tile_box, tt)):
+        want = np.asarray(pk._tile_bboxes(jnp.asarray(pad_x), jnp.asarray(pad_m), tile))
+        assert got.shape == want.shape
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert not np.signbit(got.numpy()[got.numpy() == 0]).any()  # −0 stored as +0
+    assert prep.n == len(xyz) and prep.packed.shape == (n_pad, 4)
+    empty = ~pad_m.reshape(-1, tt).any(axis=1)
+    if scene == "masked_tiles":
+        assert empty.any()
+    np.testing.assert_array_equal(prep.tile_box.numpy()[:3, empty], np.float32(3e38))
+    np.testing.assert_array_equal(prep.tile_box.numpy()[3:6, empty], np.float32(-3e38))
+
+
+@pytest.mark.parametrize("tt", VARIANT_TTS)
+def test_variant_bf16_packing(tt):
+    """The bf16 prep twin's packed target (the compiled bf16 instances'
+    prep takes tt 1,024; the twin any tt): a bfloat16 (⌈T / tt⌉·tt, 4) tensor
+    holding ``cuda_knn._bf16`` of each valid point, +inf for masked and
+    padding points, 0 in the fourth column — 8 bytes a point."""
+    xyz, m = map(_t, _masked_tiles_scene())
+    packed = tk.prepare_target_reference(xyz, m, tt, bf16=True).packed
+    n_pad = -(-len(xyz) // tt) * tt
+    assert packed.dtype == torch.bfloat16 and packed.shape == (n_pad, 4)
+    assert packed.element_size() * packed.shape[1] == 8
+    wide = packed.to(torch.float32)
+    valid = torch.zeros(n_pad, dtype=torch.bool)
+    valid[:len(xyz)] = m
+    assert torch.equal(wide[:len(xyz)][m, :3].view(torch.int32),
+                       tk._bf16(xyz[m]).view(torch.int32))
+    assert bool(torch.isposinf(wide[~valid, :3]).all())
+    assert bool((wide[:, 3] == 0).all())
+    f32 = tk.prepare_target_reference(xyz, m, tt).packed
+    assert f32.dtype == torch.float32 and torch.equal(f32[:len(xyz)][m, :3], xyz[m])
+
+
 def test_variants_are_the_compiled_set():
     assert (128, 1024, "prod") in tk.VARIANTS and len(tk.VARIANTS) == 13
     assert {tt for _, tt, _ in tk.VARIANTS} == {1024, 2048, 4096}
@@ -123,6 +241,16 @@ def test_variants_are_the_compiled_set():
     for bad in ((512, 1024, "bf16"), (64, 1024, "prod"), (256, 1024, "high3")):
         with pytest.raises(ValueError, match="not compiled"):
             tk.nn_1_pruned_variant(*map(_t, (q, qm, t, tm)), 1.0, *bad)
+
+
+def test_variant_preps_are_the_compiled_tiles():
+    """One prep for each tile of the instances, and a bf16 prep only where a
+    bf16 instance has that tile; any other (tt, bf16) raises ValueError."""
+    assert tk.VARIANT_PREPS == {(1024, False), (2048, False), (4096, False), (1024, True)}
+    xyz, m = map(_t, _masked_tiles_scene())
+    for tt, bf16 in ((512, False), (2048, True), (4096, True)):
+        with pytest.raises(ValueError, match="no compiled instance"):
+            tk.prepare_variant_target(xyz, m, tt, bf16)
 
 
 def test_cpu_check_imports_no_jax():
