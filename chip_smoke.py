@@ -15,7 +15,9 @@ Phases, each of which raises on failure (the exit code is then not 0):
    coarse pass (8,192 flat points, thr 10 m), the whole-cloud pass of
    ``batch_whole_registration`` (65,536 uncut, sorted in each cloud's own
    frame, the source moved by the yaw-only guess: thr 4 m and none; and
-   thr 4 m near the truth) and past 262,144 targets; the in-order
+   thr 4 m near the truth), the fine pass with NaN coordinates in valid
+   targets, a masked one and a query (a NaN target is never found: ROADMAP
+   F13, README D23) and past 262,144 targets; the in-order
    segment sums at 65,536 voxel rows (and, in phase 9, at the sector sums
    of 8 HDL-64E clouds): the tile kernel and the first design's walk
    (``csrc/segment_sum.cu``) bit-equal to the twin and a second run, then,
@@ -174,7 +176,16 @@ Phases, each of which raises on failure (the exit code is then not 0):
    ordering bit-equal to ``get_ordered_cloud`` and both timed; and both
    examples with ``--device=cuda``; ``bev_raster`` and ``ground_sums``
    launched by the parity and scaling runs, ``nn_prep_batched``,
-   ``nn_pruned_batched`` and ``segment_sum4`` by the floor and scaling runs.
+   ``nn_pruned_batched`` and ``segment_sum4`` by the floor and scaling runs;
+16. pctpu's benchmark driver and driver entry, ported
+   (``pctpu_torch.experiments.{bench, graft_entry}``): ``bench.main`` with
+   ``--details`` at full size — exit 0, ``verify`` "ok", every key of the
+   line and of the details block present and finite (a recorded
+   ``pipeline_span_error`` fails), ``pct_of_roofline`` ≤ 100 in every
+   utilization row, and ``bev_raster``, ``ground_sums``, ``nn_pruned``,
+   ``nn_prep_batched``, ``nn_pruned_batched`` and ``segment_sum4``
+   launched; ``graft_entry.entry()``'s step once; and
+   ``dryrun_multichip(2)`` on the logical mesh ``[cuda:0] * 2``.
 
 Phase 3's two gates that read the profiler: the segment sums' tile kernel
 is held against the walk on each design's device time by torch.profiler,
@@ -183,8 +194,8 @@ both called in turns in one window (their wall times, on a launch floor of
 ``experiments.card.profile_calls`` counts a call's kernels among the device
 events that start inside the calls' own span.
 
-Each of paths 5-15 runs with the launch counts set to 0 just before it and
-read just after (in phase 15 each tool on its own); a kernel of the path launched no time fails the run.  In
+Each of paths 5-16 runs with the launch counts set to 0 just before it and
+read just after (in phases 15 and 16 each tool on its own); a kernel of the path launched no time fails the run.  In
 phase 13 that holds for every mesh run and every process on its own, apart
 from the unsharded runs they are compared with.
 Prints one JSON line of per-kernel results, then the final line
@@ -2151,6 +2162,126 @@ def tools_phase(dev: torch.device, smi: str) -> collections.Counter:
     return total
 
 
+# the keys of the benchmark's line and details block: bench.py's
+# (bench.py:1115-1165, :1170-1211), the tunnel's transfer keys renamed
+BENCH_LINE_KEYS = (
+    "metric", "value", "unit", "vs_baseline", "compat", "bitexact_clouds_per_sec",
+    "bitexact_vs_baseline", "full_span_clouds_per_sec", "baseline_full_span_clouds_per_sec",
+    "vs_baseline_full_span", "vs_baseline_interval", "vs_baseline_full_span_interval",
+    "pipeline_full_span_clouds_per_sec", "pipeline_write_overlap_hidden_pct",
+    "transfer_ms_per_batch", "transfer_mb_per_batch", "verify", "device")
+BENCH_DETAILS_KEYS = (
+    "hdl64e_multibev_clouds_per_sec_tolerance", "hdl64e_multibev_clouds_per_sec_bitexact",
+    "hdl64e_multibev_general_path_clouds_per_sec",
+    "hdl64e_multibev_general_path_clouds_per_sec_tolerance", "hdl32e_multibev_clouds_per_sec",
+    "os1_64_multibev_clouds_per_sec", "baseline_single_core_clouds_per_sec",
+    "baseline_ms_per_cloud", "baseline_full_span_clouds_per_sec",
+    "baseline_full_span_ms_per_cloud", "pctpu_bev_write_ms_per_cloud",
+    "full_span_clouds_per_sec_tolerance", "full_span_clouds_per_sec_bitexact",
+    "vs_baseline_full_span", "vs_baseline_full_span_bitexact", "registration_pairs_per_sec_65k",
+    "registration_stage_wall_ms_per_pair", "registration_baseline_single_core_pairs_per_sec",
+    "registration_baseline_ms_per_pair", "registration_baseline_stage_ms",
+    "registration_vs_baseline", "pipeline_full_span_clouds_per_sec",
+    "pipeline_wall_ms_per_cloud", "pipeline_device_ms_per_cloud_incl_transfers",
+    "pipeline_bev_write_ms_per_cloud", "pipeline_serial_sum_ms_per_cloud",
+    "pipeline_write_overlap_hidden_pct", "transfer_ms_per_batch", "transfer_mb_per_batch",
+    "vs_baseline_interval", "vs_baseline_full_span_interval", "baseline_ms_spread",
+    "utilization", "verify")
+BENCH_KERNELS = ("bev_raster", "ground_sums", "nn_pruned", "nn_prep_batched",
+                 "nn_pruned_batched", "segment_sum4")
+
+
+def finite_leaves(value, where: str) -> None:
+    """Every number under ``value`` finite, and no None."""
+    if isinstance(value, dict):
+        for k, v in value.items():
+            finite_leaves(v, f"{where}.{k}")
+    elif isinstance(value, list):
+        for k, v in enumerate(value):
+            finite_leaves(v, f"{where}[{k}]")
+    elif value is None or (isinstance(value, float) and not math.isfinite(value)):
+        raise AssertionError(f"{where} is {value}")
+
+
+def bench_phase(dev: torch.device, smi: str) -> collections.Counter:
+    """Phase 16: pctpu's benchmark driver and driver entry, ported, on the
+    card.  Returns the hand-kernel launches of its paths, summed."""
+    from pctpu_torch.experiments import bench, graft_entry
+    from pctpu_torch.ops import _cuda
+
+    t_phase = time.perf_counter()
+    base = os.path.join(ROOT, "build", "chip_smoke_bench")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    total: collections.Counter = collections.Counter()
+
+    def path(names, what: str, fn, *args):
+        """``fn(*args)`` counted from 0; its launches must name ``names``."""
+        _cuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, log = run_logged(fn, *args)
+        torch.cuda.synchronize()
+        launches = nonzero(_cuda.launch_counts)
+        require_launched(launches, names, what)
+        total.update(launches)
+        return out, log, launches, time.perf_counter() - t0
+
+    # --- 16a. the benchmark driver, --details, at full size -----------------
+    details_path = os.path.join(base, "bench_details.json")
+    rc, log, launches, wall = path(BENCH_KERNELS, "bench_torch --details", bench.main,
+                                   ["--details", "--details-path", details_path])
+    line = json.loads(log.strip().splitlines()[-1])
+    with open(details_path) as f:
+        details = json.load(f)
+    if rc != 0 or line.get("verify") != "ok" or details.get("verify") != "ok":
+        raise AssertionError(f"bench_torch --details: exit {rc}, verify {line.get('verify')}")
+    for name, got, keys in (("line", line, BENCH_LINE_KEYS),
+                            ("details", details, BENCH_DETAILS_KEYS)):
+        missing = [k for k in keys if k not in got]
+        if missing or "pipeline_span_error" in got:
+            raise AssertionError(f"bench_torch's {name}: missing {missing}, "
+                                 f"{got.get('pipeline_span_error')}")
+        finite_leaves({k: got[k] for k in keys}, name)
+    util = details["utilization"]
+    rows = {**util["stages"], **util["substages_isolated"]}
+    over = {k: r["pct_of_roofline"] for k, r in rows.items() if not r["pct_of_roofline"] <= 100}
+    if over:
+        raise AssertionError(f"utilization rows over their roofline: {over}")
+    print(f"16a bench_torch --details (full size): exit 0, verify ok, every key finite; "
+          f"{wall:.1f} s; launches {launches}; card {smi}")
+    print(json.dumps(line))
+    print(json.dumps(details))
+
+    # --- 16b. the driver entry's flagship step --------------------------------
+    def step():
+        fn, (example,) = graft_entry.entry()
+        return fn(example)
+
+    (labeled, multi, single), _, launches, wall = path(("bev_raster", "ground_sums"),
+                                                       "graft_entry.entry", step)
+    if multi.shape != (1, 24, 224, 224) or single.shape != (1, 224, 224) or \
+            not int(multi.sum()) or labeled.label.device != dev:
+        raise AssertionError(f"graft_entry.entry(): multi {tuple(multi.shape)}, "
+                             f"sum {int(multi.sum())}")
+    print(f"16b graft_entry.entry() step on the card: multi {tuple(multi.shape)}, "
+          f"{int((multi > 0).sum())} occupied cells, {int((labeled.label == 0).sum())} ground "
+          f"points; {wall:.1f} s; launches {launches}")
+
+    # --- 16c. the multichip dry run on a logical mesh of two ------------------
+    _, log, launches, wall = path(("bev_raster", "ground_sums", "nn_pruned_batched",
+                                   "segment_sum4"), "dryrun_multichip",
+                                  graft_entry.dryrun_multichip, 2, [dev] * 2)
+    summary = [ln for ln in log.splitlines() if ln.startswith("dryrun_multichip OK")]
+    if not summary:
+        raise AssertionError(f"dryrun_multichip printed no summary:\n{log[-2000:]}")
+    print(f"16c {summary[0]} ([cuda:0] * 2); {wall:.1f} s; launches {launches}")
+    shutil.rmtree(base)
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s; hand-kernel launches "
+          f"{dict(total)}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)",
@@ -2243,11 +2374,19 @@ def main() -> int:
         registration._guess_angle_rad(20.0)).astype(np.float32)).to(dev)
     whole_guess = (transform_xyz(whole_s, yaw_guess), whole_sm, whole_t, whole_tm)
     whole_near = (transform_xyz(whole_s, near), whole_sm, whole_t, whole_tm)
+    # F13: NaN coordinates in valid targets, in a masked one and in a query
+    nan_q, nan_t, nan_tm = fine_q.clone(), fine_t.clone(), fine_tm.clone()
+    nan_t[[100, 20000, 20001], [1, 0, 2]] = float("nan")
+    nan_tm[[100, 20000, 20001]] = True
+    nan_t[300, 0] = float("nan")
+    nan_tm[300] = False
+    nan_q[7, 2] = float("nan")
 
     nn_cases = [
         ("fine thr 1 m", (fine_q, fine_qm, fine_t, fine_tm), 1.0),
         ("fine fitness (no thr)", (fine_q, fine_qm, fine_t, fine_tm), None),
         ("fine thr 1 m, 10% masked", (fine_q, fine_qm & ~drop_q, fine_t, fine_tm & ~drop_t), 1.0),
+        ("fine thr 1 m, NaN in valid targets", (nan_q, fine_qm, nan_t, nan_tm), 1.0),
         ("coarse 8192 thr 10 m", (flat_q, ones, flat_t, ones), 10.0),
         ("whole thr 4 m, yaw guess", whole_guess, 4.0),
         ("whole fitness (no thr), yaw guess", whole_guess, None),
@@ -2550,9 +2689,13 @@ def main() -> int:
     # --- 15. pctpu's tools outside the package ---------------------------------
     tools = tools_phase(dev, smi)
 
+    # --- 16. pctpu's benchmark driver and driver entry ----------------------------
+    bench_launches = bench_phase(dev, smi)
+
     def with_campaign(entry: dict) -> dict:
         return {**entry, "campaign_launches": campaign[entry["name"]],
-                "tools_launches": tools[entry["name"]]}
+                "tools_launches": tools[entry["name"]],
+                "bench_launches": bench_launches[entry["name"]]}
 
     # K1, the prep and K4's <128, 1024, prod> on the fine pass at thr 1 m (K4
     # also on the fitness pass)

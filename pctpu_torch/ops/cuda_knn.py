@@ -28,6 +28,10 @@ and for queries with no target within ``max_distance``.  pctpu's kernel
 instead compares |t|² − 2q·t scores, so its winner can differ inside the
 score-tie window ~4·|p|²·2⁻²³ (pallas_knn.py:355-365), and beyond the
 threshold it returns +inf or a finite d² > thr²; ICP rejects both alike.
+A target with a NaN coordinate is never found and costs no other target
+anything (the answer is the one without it); pctpu's kernel loses the whole
+target tile (``tt``) that holds one, masked or not, so its answer there
+depends on its tile size (README D23).
 
 ``nn_1_pruned_variant`` launches the instances of ``csrc/nn_variant.cu``
 (the port of ``exp_nn_argmin.py``'s ``nn_variant``): K1's warp design
@@ -163,11 +167,13 @@ def spatial_sort_payload(xyz: torch.Tensor, mask: torch.Tensor, *extras):
 def _tile_bboxes(xyz: torch.Tensor, mask: torch.Tensor, tile: int) -> torch.Tensor:
     """(8, n_tiles) f32: rows [minx miny minz maxx maxy maxz 0 0]; fully
     masked tiles get an impossible box (min=+big, max=-big) so every gap test
-    skips them.  ``xyz.shape[0]`` must be a multiple of ``tile``."""
+    skips them.  A NaN coordinate is left out of its box, as the kernels'
+    ``fminf`` / ``fmaxf`` leave it out (such a point never wins).
+    ``xyz.shape[0]`` must be a multiple of ``tile``."""
     n = xyz.shape[0]
     nt = n // tile
     x = xyz.reshape(nt, tile, 3)
-    m = mask.reshape(nt, tile, 1)
+    m = mask.reshape(nt, tile, 1) & ~x.isnan()
     mins = torch.where(m, x, _BIG).amin(dim=1)
     maxs = torch.where(m, x, -_BIG).amax(dim=1)
     out = torch.zeros((8, nt), dtype=torch.float32, device=xyz.device)
@@ -318,8 +324,11 @@ def nn_1_pruned_reference(
     block: int = 1 << 23,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain torch twin of the kernel: blocked exact brute force over all
-    targets, the same contract as :func:`nn_1_pruned`.  ``block`` bounds the
-    (queries × targets) elements held at once."""
+    targets, the same contract as :func:`nn_1_pruned`.  A NaN d² (a NaN
+    coordinate) counts as +inf, as it never wins the kernels' strict <: a
+    valid target with a NaN coordinate is never found and costs no other
+    target anything.  ``block`` bounds the (queries × targets) elements held
+    at once."""
     nq, nt = query.shape[0], target.shape[0]
     rows = max(1, block // max(nt, 1))
     inf = torch.tensor(float("inf"), device=query.device)
@@ -327,7 +336,7 @@ def nn_1_pruned_reference(
     best = torch.full((nq,), float("inf"), device=query.device)
     for s in range(0, nq, rows):
         d = sq_dist(query[s : s + rows, None, :] - target[None, :, :])
-        d = torch.where(target_mask[None, :], d, inf)
+        d = torch.where(target_mask[None, :] & ~d.isnan(), d, inf)
         # argmin returns the first minimum: ties go to the lowest index
         best[s : s + rows], idx[s : s + rows] = torch.min(d, dim=1)
     return _finish(query, query_mask, target, target_mask, idx,

@@ -653,15 +653,17 @@ def default_pair_batch(device: torch.device | str = "cuda") -> int:
 
 
 def _prepare_batch_driver(match_results_filename, point_cloud_dir, report_path, capacity,
-                          pair_batch, devices, process_id, num_processes, resume, device):
+                          pair_batch, devices, process_id, num_processes, resume, device,
+                          mesh=None):
     """The shared preamble of the two drivers: resolve ``pair_batch``, load
     the match list and take this process's strided share of it (writing
     ``<report_path>.shard<pid>`` when there are several processes), derive
     the shared capacity from that share's FULL list of PCD headers (so a
     resumed run pads like the run it continues), filter resumed pairs, and
-    build the data mesh of ``devices`` (N CUDA cards, or the CPU N times),
-    rounding ``pair_batch`` up to a multiple of it.  Returns (matches,
-    report path, report mode, capacity, pair_batch, mesh)."""
+    build the data mesh of ``devices`` (N CUDA cards, or the CPU N times)
+    unless ``mesh`` is given, rounding ``pair_batch`` up to a multiple of its
+    data axis.  Returns (matches, report path, report mode, capacity,
+    pair_batch, mesh)."""
     device = torch.device(device)
     if pair_batch is None:
         pair_batch = default_pair_batch(device)
@@ -676,12 +678,11 @@ def _prepare_batch_driver(match_results_filename, point_cloud_dir, report_path, 
         capacity = _auto_capacity(matches, point_cloud_dir)
         log.info(f"capacity auto-derived from headers: {capacity}")
     matches, report_mode = _filter_resumed(matches, report_path, resume)
-    mesh = None
-    if devices is not None and devices > 1:
+    if mesh is None and devices is not None and devices > 1:
         mesh = make_mesh(n_data=devices,
                          devices=None if device.type == "cuda" else [device] * devices)
-        if pair_batch % devices:
-            pair_batch = -(-pair_batch // devices) * devices
+    if mesh is not None and pair_batch % mesh.shape["data"]:
+        pair_batch = -(-pair_batch // mesh.shape["data"]) * mesh.shape["data"]
     return matches, report_path, report_mode, capacity, pair_batch, mesh
 
 
@@ -845,6 +846,7 @@ def run_batch_whole_registration(
     num_processes: int | None = None,
     resume: bool = False,
     device: torch.device | str = "cuda",
+    mesh: Mesh | None = None,
 ) -> tuple[int, int]:
     """The ablation driver on ``device``: direct 3-D ICP from the yaw guess
     on the whole downsampled clouds.  One pair after another
@@ -860,12 +862,14 @@ def run_batch_whole_registration(
     sidecar (the contract of :func:`run_batch_top_part_registration`); the
     returned and printed counts cover only this invocation's pairs.
     ``devices``, ``process_id`` and ``num_processes`` split the work as in
-    :func:`run_batch_top_part_registration` (an empty report a process)."""
+    :func:`run_batch_top_part_registration` (an empty report a process); an
+    explicit ``mesh`` takes the place of ``devices``' mesh, as in
+    ``run_multi_bev``."""
     if cfg is None:
         cfg = RegistrationConfig(fine=WHOLE_ICP)
     matches, report_path, report_mode, capacity, pair_batch, mesh = _prepare_batch_driver(
         match_results_filename, point_cloud_dir, report_path, capacity, pair_batch, devices,
-        process_id, num_processes, resume, device)
+        process_id, num_processes, resume, device, mesh)
     if mesh is not None:
         device = mesh.data_devices[0]
     timer = StageTimer()

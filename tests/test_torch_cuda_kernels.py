@@ -67,11 +67,29 @@ def _ties(dev):
     return q.to(dev), torch.ones(37, dtype=torch.bool, device=dev), t.to(dev), tm.to(dev)
 
 
+def _dirty(q, t, tm):
+    """Copies of sorted queries and targets with NaN and infinite
+    coordinates: NaN in valid targets (one of them in a group and a tile of
+    its own's neighbours) and in a masked one, ±inf in valid targets, a NaN
+    and an infinite query.  A NaN target is never found and costs no other
+    target anything, in the kernels and in the twin (ROADMAP F13, README
+    D23)."""
+    q, t, tm = q.clone(), t.clone(), tm.clone()
+    t[100, 1] = t[2500, 0] = t[2501, 2] = float("nan")
+    t[4000, 0], t[8000, 2] = float("inf"), -float("inf")
+    tm[[100, 2500, 2501, 4000, 8000]] = True
+    t[300, 0] = float("nan")
+    tm[300] = False
+    q[5, 2], q[9, 0], q[40, 1] = float("nan"), float("inf"), -float("inf")
+    return q, t, tm
+
+
 def _warp_cases(dev):
     """(name, (query, query_mask, target, target_mask)) of the warp design's
     edge cases; the sorted ones through spatial_sort_payload."""
     rng = np.random.default_rng(9)
     q, qm, t, tm = _sorted_scene(dev)
+    bad_q, bad_t, bad_tm = _dirty(q, t, tm)
     big_t, big_tm = tk.spatial_sort_payload(*_cloud(rng, 300_000, dev, 100.0))
     big_q, big_qm = tk.spatial_sort_payload(*_cloud(rng, 5_000, dev, 100.0))
     ragged = 3 * 1024 + 32 * 5 + 7  # T not a multiple of 32 or 1,024
@@ -87,6 +105,7 @@ def _warp_cases(dev):
         ("T > 262,144", (big_q, big_qm, big_t, big_tm)),
         ("unsorted", (*_cloud(rng, 3000, dev), *_cloud(rng, 7000, dev))),
         ("queries far outside the target's box", (q + 1000.0, qm, t, tm)),
+        ("NaN and inf coordinates, NaN in valid targets", (bad_q, qm, bad_t, bad_tm)),
     ]
 
 
@@ -109,12 +128,17 @@ def test_nn_pruned_warp_cases(dev, md):
 @pytest.mark.cuda
 def test_nn_prep(dev):
     """The prep kernel against its twin: packed points, group and tile boxes,
-    bit for bit (−0 coordinates included, and an all-masked group)."""
+    bit for bit (−0 coordinates included, an all-masked group, and NaN
+    coordinates in valid and masked points, which the boxes leave out)."""
     rng = np.random.default_rng(10)
     for n in (1, 31, 1024, 5000):
         xyz, mask = _cloud(rng, n, dev)
         xyz[: min(n, 7)] = -0.0
         mask[min(n, 64):min(n, 128)] = False
+        if n == 5000:
+            xyz[[10, 2000, 2001, 4500], [0, 1, 2, 0]] = float("nan")
+            mask[[10, 2000, 2001]] = True
+            mask[4500] = False
         got = tk.prepare_target(xyz, mask)
         want = tk.prepare_target_reference(xyz, mask)
         assert got.n == want.n == n
@@ -126,7 +150,8 @@ def test_nn_prep(dev):
 def _batched_cases(dev):
     """(name, queries (P, Q, 3), masks, targets (Bt, T, 3), masks) for the
     batched pass: ragged valid counts, a target with no valid point, shared
-    targets (P > Bt), P = 1, and ties across groups and tiles."""
+    targets (P > Bt), P = 1, ties across groups and tiles, and NaN in valid
+    targets."""
     rng = np.random.default_rng(21)
 
     def batch(n_problems, n_targets, nq, nt):
@@ -143,7 +168,12 @@ def _batched_cases(dev):
         return q, qm, t, tm
 
     ties = _ties(dev)
+    q, qm, t, tm = batch(4, 2, 3000, 9000)
+    dirty = [_dirty(q[k], t[k // 2], tm[k // 2]) for k in range(4)]
     return [
+        ("NaN and inf coordinates, NaN in valid targets",
+         (torch.stack([d[0] for d in dirty]), qm,
+          torch.stack([dirty[0][1], dirty[2][1]]), torch.stack([dirty[0][2], dirty[2][2]]))),
         ("16 problems, 16 targets", batch(16, 16, 3000, 5000)),
         ("32 problems sharing 16 targets", batch(32, 16, 2000, 4100)),
         ("6 problems sharing 2 targets", batch(6, 2, 777, 3 * 1024 + 5)),
@@ -203,10 +233,9 @@ def test_nn_variant(dev):
 
 def _variant_cases(dev):
     """(name, (query, query_mask, target, target_mask)) of the variants'
-    edge cases.  The NaN case keeps NaN to the queries and to masked
-    targets: for a NaN in a valid target the kernels skip it (a NaN d²
-    never wins a strict <) where the twin's torch.min returns NaN for the
-    whole row (ROADMAP Queue 3, F13)."""
+    edge cases.  The NaN case puts NaN in queries, in valid targets and in
+    a masked one: a NaN d² never wins, in the kernels' strict < and in the
+    twin (ROADMAP F13, README D23)."""
     rng = np.random.default_rng(13)
     q, qm, t, tm = _sorted_scene(dev)
     short_t, short_tm = tk.spatial_sort_payload(*_cloud(rng, 700, dev))
@@ -218,8 +247,9 @@ def _variant_cases(dev):
     bad_t[100, 1] = float("nan")
     bad_t[4000, 0] = float("inf")
     bad_t[8000, 2] = -float("inf")
+    bad_t[3000, 0] = float("nan")
     bad_tm = torch.ones(ragged, dtype=torch.bool, device=dev)
-    bad_tm[100] = False
+    bad_tm[3000] = False
     return [
         ("T < tt", (q, qm, short_t, short_tm)),
         ("T ragged", (q, qm, t[:ragged], tm[:ragged])),

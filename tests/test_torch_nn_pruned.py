@@ -112,6 +112,85 @@ def test_ties_go_to_lowest_index():
     assert idx.tolist() == [1200, 1500, 1200, 1200]
 
 
+def _without_nan_targets(q, qm, t, tm, md, **kw):
+    """pctpu's answer with the targets that hold a NaN coordinate deleted
+    (valid or masked), its indices mapped back to the full target."""
+    keep = np.flatnonzero(~np.isnan(t).any(axis=1))
+    i_p, d_p = pk.pallas_nn_1_pruned(q, qm, t[keep], tm[keep], max_distance=md,
+                                     interpret=True, **kw)
+    i_p, d_p = np.asarray(i_p), np.asarray(d_p)
+    return np.where(np.isfinite(d_p), keep[i_p], 0), d_p
+
+
+@pytest.mark.parametrize("valid", [True, False])
+def test_nan_target_line_scene(valid):
+    """ROADMAP F13: 3,000 targets 0.1 m apart on the x axis, target 2,500 at
+    (NaN, 0, 0), valid or masked; a query every 300th target, 5 cm off in y.
+    pctpu (interpret mode, 1,024-target tiles) loses the whole tile that
+    holds the NaN, masked or not, and answers 2,047 for the queries at
+    2,100, 2,400 and 2,700.  The port's rule (README D23): a NaN target is
+    never found and costs no other target anything — pctpu's answer with
+    the NaN target deleted; the prepared-target path agrees."""
+    t = np.zeros((3000, 3), np.float32)
+    t[:, 0] = np.arange(3000, dtype=np.float32) * np.float32(0.1)
+    t[2500] = [np.nan, 0.0, 0.0]
+    tm = np.ones(3000, bool)
+    tm[2500] = valid
+    q = t[::300].copy()
+    q[8, 0] = t[2400, 0]  # target 2,400 itself lies in the tile of the NaN
+    q[:, 1] = np.float32(0.05)
+    qm = np.ones(len(q), bool)
+    want = np.arange(0, 3000, 300)
+    want[8] = 2400
+    i_p, _ = pk.pallas_nn_1_pruned(q, qm, t, tm, interpret=True)
+    i_p = np.asarray(i_p)
+    lost = np.isin(want, (2100, 2400, 2700))
+    np.testing.assert_array_equal(i_p[lost], 2047)  # pctpu's own fault, pinned
+    np.testing.assert_array_equal(i_p[~lost], want[~lost])
+    i_del, d_del = _without_nan_targets(q, qm, t, tm, None)
+    np.testing.assert_array_equal(i_del, want)
+    for prepared in (False, True):
+        if prepared:
+            prep = tk.prepare_target(_t(t), _t(tm))
+            i_t, d_t = tk.nn_1_pruned(_t(q), _t(qm), prepared=prep)
+        else:
+            i_t, d_t = tk.nn_1_pruned(_t(q), _t(qm), _t(t), _t(tm))
+        np.testing.assert_array_equal(i_t.numpy(), want)
+        np.testing.assert_array_equal(d_t.numpy(), d_del)
+
+
+@pytest.mark.parametrize("seed,md", [(21, None), (22, 2.0), (23, 8.0)])
+def test_nan_targets_equal_pctpu_without_them(seed, md):
+    """A seeded scene with NaN coordinates in valid and in masked targets
+    (queries all finite: a NaN query costs pctpu its whole query tile): the
+    port's CPU ``nn_1_pruned`` (and the batched
+    twin) equals pctpu's answer on the same inputs with the NaN targets
+    deleted, up to pctpu's score window (as in
+    :func:`test_twin_matches_pallas_kernel`)."""
+    q, qm, t, tm = (a.copy() for a in _sorted_clouds(seed, 300, 2500, masked=True))
+    rng = np.random.default_rng(seed)
+    bad = rng.choice(2500, 12, replace=False)
+    t[bad, rng.integers(0, 3, 12)] = np.nan
+    tm[bad[:6]] = True
+    i_p, d_p = _without_nan_targets(q, qm, t, tm, md, tq=128, tt=256)
+    i_t, d_t = (a.numpy() for a in tk.nn_1_pruned(_t(q), _t(qm), _t(t), _t(tm),
+                                                    max_distance=md))
+    assert not np.isin(i_t, bad).any()
+    keep = ~np.isnan(t).any(axis=1)
+    sure = qm & _unambiguous(q, t[keep], tm[keep])
+    found = np.isfinite(d_t)
+    thr2 = np.inf if md is None else np.float32(md) ** 2
+    np.testing.assert_array_equal(found, np.isfinite(d_p) & (d_p <= thr2))
+    assert sure.sum() > 0.8 * qm.sum() and found.any()
+    np.testing.assert_array_equal(i_t[sure & found], i_p[sure & found])
+    agree = qm & found & (i_t == i_p)
+    np.testing.assert_array_equal(d_t[agree], d_p[agree])
+    prep = tk.prepare_targets(_t(t)[None], _t(tm)[None])
+    i_b, d_b = tk.nn_1_pruned_batched(_t(q)[None], _t(qm)[None], prep, max_distance=md)
+    np.testing.assert_array_equal(i_b[0].numpy(), i_t)
+    np.testing.assert_array_equal(d_b[0].numpy(), d_t)
+
+
 def test_sort_helpers_bit_equal():
     rng = np.random.default_rng(11)
     xyz = rng.uniform(-80, 80, (1024, 3)).astype(np.float32)
@@ -365,12 +444,15 @@ def test_port_imports_no_jax():
     """Importing the port pulls in neither jax nor pctpu, and builds
     nothing: the CUDA library is compiled at first launch only.  The tools
     ported from pctpu's scripts and the port's examples import with
-    ``jax``, ``pctpu``, ``bench`` and pctpu's ``tests`` made unimportable."""
+    ``jax``, ``pctpu``, ``bench``, ``__graft_entry__`` and pctpu's ``tests``
+    made unimportable; so do the benchmark driver, its root shim
+    ``bench_torch.py`` and the driver entry."""
     code = (
         "import importlib.abc, importlib.util, sys\n"
         "class Block(importlib.abc.MetaPathFinder):\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in ('jax', 'jaxlib', 'pctpu', 'bench', 'tests'):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'pctpu', 'bench', 'tests',\n"
+        "                                  '__graft_entry__'):\n"
         "            raise ImportError(f'{name} is not importable here')\n"
         "sys.meta_path.insert(0, Block())\n"
         "import pctpu_torch, pctpu_torch.ops.cuda_knn\n"
@@ -403,8 +485,11 @@ def test_port_imports_no_jax():
         "import pctpu_torch.experiments.reference_parity\n"
         "import pctpu_torch.experiments.registration_floor\n"
         "import pctpu_torch.experiments.scaling_bench, pctpu_torch.experiments.sort_ordering\n"
-        "for name in ('torch_end_to_end_demo', 'torch_library_quickstart'):\n"
-        "    spec = importlib.util.spec_from_file_location(name, f'examples/{name}.py')\n"
+        "import pctpu_torch.experiments.bench, pctpu_torch.experiments.graft_entry\n"
+        "for name, path in (('torch_end_to_end_demo', 'examples/torch_end_to_end_demo.py'),\n"
+        "                   ('torch_library_quickstart', 'examples/torch_library_quickstart.py'),\n"
+        "                   ('bench_torch', 'bench_torch.py')):\n"
+        "    spec = importlib.util.spec_from_file_location(name, path)\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "assert pctpu_torch.PCA2D is pctpu_torch.ops.pca2d.PCA2D\n"
         "from pctpu_torch.runtime import native_io\n"

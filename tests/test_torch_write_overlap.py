@@ -1,8 +1,8 @@
 """The BEV writes overlap the device loop in pctpu_torch's ``run_multi_bev``
 (``runtime/writer.py::AsyncWriter``), on the CPU: the port's copies of the
 two pipeline cases of ``tests/test_write_overlap.py`` (:60 and :154).  Its
-three other cases test ``bench.py``'s plumbing and wait for the port's
-bench leg.
+three other cases test ``bench.py``'s plumbing: their port copies, against
+``pctpu_torch.experiments.bench``, are in ``tests/test_torch_bench.py``.
 
 With the writes stubbed to a fixed sleep (an IO-shaped cost that releases
 the GIL, like the native writers), the loop wall must sit near
