@@ -83,12 +83,17 @@ Phases, each of which raises on failure (the exit code is then not 0):
    most 2 kernels + 1 memset a call;
    ``preprocess_batch`` timed with the tile kernel and, in turns, with the
    walk in the sector sums' place, and with the first design's raster
-   kernels in the rasters' place; the CLI in both
+   kernels in the rasters' place; the wire of every loader batch
+   (``bench.wire_transfer``: MB and ms up and back over the pipelines'
+   narrow pinned wire, which must be pinned, and over the wide pageable one
+   in turns, a line a batch); the CLI in both
    compat modes after a warm-up, printing clouds/s, its ``[TIME]`` lines,
    launches per batch, the writer and the largest ground sector; the
    tolerance tree byte-identical to the bit-exact tree, the card's tree to
-   the port's CPU run on 4 clouds, and labels, ``.bin`` and single BEV to
-   ``native/ref_oracle.cpp`` (any difference must be a D2 slope knife
+   the port's CPU run on 4 clouds and to its CPU run of every cloud in the
+   card's batches (which pins no buffer: a pinned buffer handed out again
+   under a lagging writer would show), and labels, ``.bin`` and single BEV
+   to ``native/ref_oracle.cpp`` (any difference must be a D2 slope knife
    edge);
 10. pair-batched registration: the registration tree's 20-pair list
    (``match_result_20.txt``: one batch of 16 and a tail of 4 padded to 16)
@@ -106,11 +111,13 @@ Phases, each of which raises on failure (the exit code is then not 0):
    CPU and its float BEVs to ``native/ref_oracle.cpp``'s
    ``pctpu_ref_float_bev``, NaN heights card = CPU, the float BEV's ms a
    batch beside its bytes bound and the step's ms and kernels a batch in
-   both compat modes; the CLI in both modes after a warm-up (clouds/s, its
+   both compat modes; the wire of every loader batch, as in phase 9; the CLI
+   in both modes after a warm-up (clouds/s, its
    ``[TIME]`` line, the CSV route, which must be the native one), the
-   host's share of a cloud stage by stage (load, results back, CSV, PNG,
-   labeled PCD), the trees byte-identical across modes, to the port's CPU
-   run on 4 clouds and, for every float BEV's CSV and PNG, to the oracle's;
+   host's share of a cloud stage by stage (load, results back beside the
+   wide pageable copies, CSV, PNG, labeled PCD), the trees byte-identical
+   across modes, to the port's CPU run on 4 clouds and of every cloud, and,
+   for every float BEV's CSV and PNG, to the oracle's;
    ``ground_sums``
    launched; then ``cloud_manip`` on one drive cloud with ``--snapshot``
    in both views and ``--html``, every file byte-equal to the CPU run and
@@ -181,7 +188,8 @@ Phases, each of which raises on failure (the exit code is then not 0):
    (``pctpu_torch.experiments.{bench, graft_entry}``): ``bench.main`` with
    ``--details`` at full size — exit 0, ``verify`` "ok", every key of the
    line and of the details block present and finite (a recorded
-   ``pipeline_span_error`` fails), ``pct_of_roofline`` ≤ 100 in every
+   ``pipeline_span_error`` fails), the span's loader batch copied back
+   pinned (its wire printed beside the wide one), ``pct_of_roofline`` ≤ 100 in every
    utilization row, and ``bev_raster``, ``ground_sums``, ``nn_pruned``,
    ``nn_prep_batched``, ``nn_pruned_batched`` and ``segment_sum4``
    launched; ``graft_entry.entry()``'s step once; and
@@ -717,6 +725,39 @@ def fused_case(name: str, args: tuple, smi: str, got=None, library: bool = False
             "library_ms": lib_ms, "wrapper_ms": ms["wrapper"], "v1_ms": ms["v1 alone"]}
 
 
+def wire_lines(name: str, paths: list, load, dev: torch.device, smi: str) -> list[dict]:
+    """The BEV pipelines' wire, one loader batch of 8 at a time, as the
+    pipelines batch ``paths`` (the last batch padded with its last cloud):
+    ``bench.wire_transfer``, the narrow pinned wire and, in turns, the wide
+    pageable one on the same batch.  A line a batch, then their medians."""
+    from pctpu_torch.experiments.bench import wire_transfer
+    from pctpu_torch.runtime.loader import stack_batch
+
+    out = []
+    for k in range(0, len(paths), 8):
+        payload = [load(p) for p in paths[k:k + 8]]
+        w = wire_transfer(stack_batch(payload + [payload[-1]] * (8 - len(payload))), dev)
+        slots = 8 * payload[0]["row"].shape[0]
+        if not w["transfer_pinned"] or w["transfer_mb_up"] * 1e6 != 26 * slots + 4 * 8:
+            raise AssertionError(f"{name} wire: pinned {w['transfer_pinned']}, "
+                                 f"{w['transfer_mb_up']} MB up for {slots} slots")
+        print(f"  {name} wire, batch {k // 8}: up {w['transfer_mb_up']:.6f} MB in "
+              f"{w['transfer_up_ms']:.4f} ms, back {w['transfer_mb_back']:.6f} MB in "
+              f"{w['transfer_back_ms']:.4f} ms, pinned {w['transfer_pinned']}; wide pageable "
+              f"{w['wide_transfer_mb_per_batch'] / 2:.6f} MB each way, up "
+              f"{w['wide_transfer_up_ms']:.4f} ms, back {w['wide_transfer_back_ms']:.4f} ms "
+              f"(host clock, the least of two turns each); card {smi}")
+        out.append(w)
+    med = {k: float(np.median([w[k] for w in out])) for k in
+           ("transfer_ms_per_batch", "wide_transfer_ms_per_batch", "transfer_mb_per_batch",
+            "wide_transfer_mb_per_batch")}
+    print(f"{name} wire over {len(out)} batches of 8, medians: narrow pinned "
+          f"{med['transfer_mb_per_batch']:.6f} MB in {med['transfer_ms_per_batch']:.4f} ms, wide "
+          f"pageable {med['wide_transfer_mb_per_batch']:.6f} MB in "
+          f"{med['wide_transfer_ms_per_batch']:.4f} ms (up + back); card {smi}")
+    return out
+
+
 def multi_bev_phase(dev: torch.device, smi: str, n_ordered: int = 64, ptxas: dict | None = None,
                     clock_mhz: float = 1980.0) -> list[dict]:
     """Phase 9 (module docstring).  Returns the ``kernels`` entries of the
@@ -820,6 +861,10 @@ def multi_bev_phase(dev: torch.device, smi: str, n_ordered: int = 64, ptxas: dic
               f"{kernels} kernels + {copies} copies/memsets per batch; multi BEV to the host "
               f"({multi.numel() / 1e6:.2f} MB) {d2h_ms:.4f} ms; card {smi}")
 
+    # --- 9w. the wire of every loader batch, narrow pinned against wide ----
+    wire_lines("batch_multi_bev_gen", paths,
+               lambda p: load_xyzirct_arrays(p, params.grid_size, params=params), dev, smi)
+
     # --- 9b. the CLI in both modes, after a warm-up -----------------------
     warm = os.path.join(base, "warm")
     os.makedirs(os.path.join(warm, "keyframe_point_cloud"))
@@ -887,6 +932,25 @@ def multi_bev_phase(dev: torch.device, smi: str, n_ordered: int = 64, ptxas: dic
     print(f"card tree byte-identical to the CPU run on {len(picked)} clouds ({len(cpu)} files, "
           f"CPU {time.perf_counter() - t0:.1f} s)")
 
+    # --- 9e. the whole card tree against the port's CPU run of every cloud --
+    # the CPU run pins no buffer: a pinned host buffer handed out again while
+    # a writer still read it would show here
+    whole = os.path.join(base, "cpu_all")
+    os.makedirs(os.path.join(whole, "keyframe_point_cloud"))
+    for p in paths:
+        shutil.copy(p, os.path.join(whole, "keyframe_point_cloud"))
+    shutil.copy(os.path.join(src, "keyframe_pose.csv"), whole)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        multi_bev.run_multi_bev(whole, "HDL_64E", batch_size=8, device="cpu")
+    cpu = tree_files(whole)
+    differ = sorted(k for k in exact if exact[k] != cpu.get(k)) + sorted(set(cpu) - set(exact))
+    if differ:
+        raise AssertionError(f"the whole CPU run differs from the card's tree in {differ[:5]}")
+    print(f"card tree byte-identical to the CPU run of all {len(paths)} clouds, "
+          f"{-(-len(paths) // 8)} batches of 8 ({len(cpu)} files, CPU "
+          f"{time.perf_counter() - t0:.1f} s)")
+
     # --- 9d. against the native oracle (the C++'s f64 slope) ---------------
     lib = oracle.load()
     totals = {"labels": 0, "bin": 0, "single": 0, "csv": 0, "d2_cells": 0}
@@ -950,7 +1014,7 @@ def cloud_manip_phase(dev: torch.device, smi: str, n_ordered: int = 29) -> dict:
     from pctpu_torch.ops import _cuda, bev
     from pctpu_torch.ops.transform import make_rigid_transform, transform_cloud, transform_xyz
     from pctpu_torch.pipelines import batch_cloud_manip as bcm
-    from pctpu_torch.pipelines.multi_bev import _to_device
+    from pctpu_torch.pipelines.multi_bev import _to_device, _to_host, _wire
     from pctpu_torch.runtime.loader import load_xyzirct_arrays, stack_batch
 
     params = bcm.HDL64E
@@ -1015,6 +1079,8 @@ def cloud_manip_phase(dev: torch.device, smi: str, n_ordered: int = 29) -> dict:
     for c in step_ms:
         print(f"  batch_cloud_manip device step B = 8 ({c}): {step_ms[c]:.4f} ms (CUDA events), "
               f"{step_prof[c][0]} kernels + {step_prof[c][1]} copies/memsets a batch; card {smi}")
+    wire_lines("batch_cloud_manip", paths, lambda p: load_xyzirct_arrays(p, params.grid_size),
+               dev, smi)
 
     # --- 11b. the CLI in both modes, after a warm-up -----------------------
     warm = os.path.join(base, "warm")
@@ -1074,12 +1140,16 @@ def cloud_manip_phase(dev: torch.device, smi: str, n_ordered: int = 29) -> dict:
     for p in picked:
         load_xyzirct_arrays(p, params.grid_size)
     load_ms = (time.perf_counter() - t0) * 1e3 / 8
+    _to_host([{**_wire(labeled), "bev": bevs}])  # the pinned buffers' first allocation
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fields = {f: getattr(labeled, f).cpu().numpy()
-              for f in ("xyz", "intensity", "row", "col", "t", "label")}
-    bevs_h = bevs.cpu().numpy()
+    fields = _to_host([{**_wire(labeled), "bev": bevs}])
     back_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    [getattr(labeled, f).cpu() for f in ("xyz", "intensity", "row", "col", "t", "label")]
+    bevs.cpu()
+    wide_ms = (time.perf_counter() - t0) * 1e3
+    bevs_h = fields["bev"]
     stage_ms = {"CSV": 0.0, "PNG": 0.0, "labeled PCD": 0.0}
     for b in range(8):
         t0 = time.perf_counter()
@@ -1089,15 +1159,15 @@ def cloud_manip_phase(dev: torch.device, smi: str, n_ordered: int = 29) -> dict:
         t2 = time.perf_counter()
         write_pcd(os.path.join(split, f"{b}.pcd"), {
             "x": fields["xyz"][b, :, 0], "y": fields["xyz"][b, :, 1],
-            "z": fields["xyz"][b, :, 2], "intensity": fields["intensity"][b],
-            "row": fields["row"][b].astype(np.uint16), "col": fields["col"][b].astype(np.uint16),
-            "t": fields["t"][b].astype(np.uint32), "label": fields["label"][b].astype(np.int16)})
+            "z": fields["xyz"][b, :, 2],
+            **{k: fields[k][b] for k in ("intensity", "row", "col", "t", "label")}})
         t3 = time.perf_counter()
         for k, dt in zip(stage_ms, (t1 - t0, t2 - t1, t3 - t2)):
             stage_ms[k] += dt * 1e3 / 8
     print(f"  host split a cloud (B = 8, this host): load {load_ms:.4f} ms (the producer "
           f"thread's, outside [TIME]); results back {back_ms / 8:.4f} ms ({back_ms:.4f} a "
-          f"batch); " + ", ".join(f"{k} {v:.4f} ms" for k, v in stage_ms.items())
+          f"batch, narrowed on the card, pinned, one synchronize; the wide pageable copies "
+          f"{wide_ms:.4f} a batch); " + ", ".join(f"{k} {v:.4f} ms" for k, v in stage_ms.items())
           + f"; card {smi}")
 
     # --- 11c. the card's tree against the port's CPU run on 4 clouds -------
@@ -1115,6 +1185,22 @@ def cloud_manip_phase(dev: torch.device, smi: str, n_ordered: int = 29) -> dict:
                              f"{differ[:5]}")
     print(f"batch_cloud_manip: card tree byte-identical to the CPU run on 4 clouds "
           f"({len(on_cpu)} files, CPU {time.perf_counter() - t0:.1f} s)")
+    # and of every cloud, in the card run's batches of 8
+    whole = os.path.join(base, "cpu_all")
+    os.makedirs(os.path.join(whole, "keyframe_point_cloud"))
+    for p in paths:
+        shutil.copy(p, os.path.join(whole, "keyframe_point_cloud"))
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        bcm.run_batch_cloud_manip(whole, batch_size=8, device="cpu")
+    on_cpu = files(whole)
+    differ = (sorted(k for k in exact if exact[k] != on_cpu.get(k))
+              + sorted(set(on_cpu) - set(exact)))
+    if differ:
+        raise AssertionError(f"batch_cloud_manip: the whole CPU run differs from the card's tree "
+                             f"in {differ[:5]}")
+    print(f"batch_cloud_manip: card tree byte-identical to the CPU run of all {len(paths)} "
+          f"clouds ({len(on_cpu)} files, CPU {time.perf_counter() - t0:.1f} s)")
 
     # --- 11d. every written float BEV against the native oracle ------------
     bad = 0
@@ -2185,8 +2271,10 @@ BENCH_DETAILS_KEYS = (
     "pipeline_wall_ms_per_cloud", "pipeline_device_ms_per_cloud_incl_transfers",
     "pipeline_bev_write_ms_per_cloud", "pipeline_serial_sum_ms_per_cloud",
     "pipeline_write_overlap_hidden_pct", "transfer_ms_per_batch", "transfer_mb_per_batch",
-    "vs_baseline_interval", "vs_baseline_full_span_interval", "baseline_ms_spread",
-    "utilization", "verify")
+    "transfer_up_ms", "transfer_back_ms", "transfer_mb_up", "transfer_mb_back", "transfer_pinned",
+    "wide_transfer_ms_per_batch", "wide_transfer_mb_per_batch", "wide_transfer_up_ms",
+    "wide_transfer_back_ms", "vs_baseline_interval", "vs_baseline_full_span_interval",
+    "baseline_ms_spread", "utilization", "verify")
 BENCH_KERNELS = ("bev_raster", "ground_sums", "nn_pruned", "nn_prep_batched",
                  "nn_pruned_batched", "segment_sum4")
 
@@ -2250,6 +2338,15 @@ def bench_phase(dev: torch.device, smi: str) -> collections.Counter:
         raise AssertionError(f"utilization rows over their roofline: {over}")
     print(f"16a bench_torch --details (full size): exit 0, verify ok, every key finite; "
           f"{wall:.1f} s; launches {launches}; card {smi}")
+    if details["transfer_pinned"] is not True:
+        raise AssertionError("bench_torch: the span's copy back was not pinned")
+    print(f"16a the span's loader batch of 8: up {details['transfer_mb_up']:.6f} MB in "
+          f"{details['transfer_up_ms']:.4f} ms, back {details['transfer_mb_back']:.6f} MB in "
+          f"{details['transfer_back_ms']:.4f} ms, pinned; wide pageable "
+          f"{details['wide_transfer_mb_per_batch']:.6f} MB in "
+          f"{details['wide_transfer_ms_per_batch']:.4f} ms (up "
+          f"{details['wide_transfer_up_ms']:.4f}, back {details['wide_transfer_back_ms']:.4f}); "
+          f"card {smi}")
     print(json.dumps(line))
     print(json.dumps(details))
 

@@ -363,15 +363,88 @@ def _write_bench_tree(root: str, n_clouds: int, seed0: int, sensor="HDL_64E") ->
         f.writelines(lines)
 
 
+# the wide wire, kept beside the pipelines' narrow one for comparison: every
+# field widened on the host (36 B a slot, 8 B a cloud) and copied each way
+# pageable and blocking, one field at a time
+_WIDE = {"xyz": np.float32, "intensity": np.float32, "row": np.int32, "col": np.int32,
+         "t": np.int64, "label": np.int32, "count": np.int64}
+
+
+def to_device_wide(arrays: dict, device, rows: slice = slice(None)):
+    """The wide wire's upload: ``multi_bev._to_device``'s result, widened on
+    the host and copied pageable."""
+    from pctpu_torch.cloud import Cloud
+
+    return Cloud(**{k: torch.from_numpy(np.ascontiguousarray(arrays[k][rows], w)).to(device)
+                    for k, w in _WIDE.items()})
+
+
+def wire_transfer(arrays: dict, device="cuda") -> dict:
+    """One loader batch's wire as the BEV pipelines move it: up through
+    ``multi_bev._to_device`` (on-disk widths, pinned on a card, widened
+    there), back through ``_to_host(_wire(...))`` (narrowed on the device,
+    pinned on a card, one synchronize); each direction on the host clock,
+    the upload ended by a synchronize.  Beside it the same batch over the
+    wide wire (:func:`to_device_wide`, each field copied back blocking).  In turns (narrow, wide, wide, narrow) after
+    a warm-up of each, the least of each side's two."""
+    from pctpu_torch.pipelines.multi_bev import _UP, _to_device, _to_host, _wire
+
+    dev = torch.device(device)
+
+    # each turn lets go of what it copied back, as the pipeline does once its
+    # writers are done: a later turn's pinned blocks then come from the cache
+    def narrow():
+        t0 = time.perf_counter()
+        cloud = _to_device(arrays, dev)
+        _sync(dev)
+        t1 = time.perf_counter()
+        host = _to_host([_wire(cloud)])
+        t2 = time.perf_counter()
+        return (t1 - t0, t2 - t1, sum(a.nbytes for a in host.values()),
+                torch.from_numpy(host["xyz"]).is_pinned())
+
+    def wide():
+        t0 = time.perf_counter()
+        cloud = to_device_wide(arrays, dev)
+        fields = [getattr(cloud, k) for k in _WIDE]
+        _sync(dev)
+        t1 = time.perf_counter()
+        back = [x.cpu() for x in fields]
+        t2 = time.perf_counter()
+        return t1 - t0, t2 - t1, sum(x.numel() * x.element_size() for x in back)
+
+    narrow(), wide()
+    runs = {"narrow": [], "wide": []}
+    for side in ("narrow", "wide", "wide", "narrow"):
+        runs[side].append((narrow if side == "narrow" else wide)())
+    up, back = (min(r[i] for r in runs["narrow"]) for i in (0, 1))
+    wide_up, wide_back = (min(r[i] for r in runs["wide"]) for i in (0, 1))
+    up_bytes = sum(arrays[k].size * np.dtype(w).itemsize for k, w in _UP.items())
+    back_bytes, pinned = runs["narrow"][0][2:]
+    wide_bytes = runs["wide"][0][2]
+    return {
+        "transfer_ms_per_batch": (up + back) * 1e3,
+        "transfer_mb_per_batch": (up_bytes + back_bytes) / 1e6,
+        "transfer_up_ms": up * 1e3,
+        "transfer_back_ms": back * 1e3,
+        "transfer_mb_up": up_bytes / 1e6,
+        "transfer_mb_back": back_bytes / 1e6,
+        "transfer_pinned": pinned,
+        "wide_transfer_ms_per_batch": (wide_up + wide_back) * 1e3,
+        "wide_transfer_mb_per_batch": 2 * wide_bytes / 1e6,
+        "wide_transfer_up_ms": wide_up * 1e3,
+        "wide_transfer_back_ms": wide_back * 1e3,
+    }
+
+
 def measure_pipeline_span(n_clouds: int = 64, sensor="HDL_64E", device="cuda") -> dict:
     """The real ``run_multi_bev`` span (bench.py:392): the tool (prefetch
     loader → batched preprocess → writer threads, PNGs on, tolerance mode)
     over a warm tree of one batch, then a timed tree of ``n_clouds`` other
     clouds; its own loop wall a cloud is the span (the writes overlap the
-    device loop in it).  Beside it: the upload and copy-back of one loader
-    batch as the pipeline uploads it (``multi_bev._to_device``), each ended
-    by a synchronize, and its bytes both ways."""
-    from pctpu_torch.pipelines.multi_bev import _to_device, run_multi_bev
+    device loop in it).  Beside it: :func:`wire_transfer` of one loader
+    batch, through the pipeline's own upload and copy back."""
+    from pctpu_torch.pipelines.multi_bev import run_multi_bev
     from pctpu_torch.runtime.loader import list_pcd_files, load_xyzirct_arrays, stack_batch
 
     dev = torch.device(device)
@@ -385,19 +458,8 @@ def measure_pipeline_span(n_clouds: int = 64, sensor="HDL_64E", device="cuda") -
         if out.num_clouds != n_clouds:
             raise AssertionError(f"run_multi_bev wrote {out.num_clouds} of {n_clouds} clouds")
         files = list_pcd_files(os.path.join(warm_dir, "keyframe_point_cloud"))[:BATCH]
-        arrays = stack_batch([load_xyzirct_arrays(f, params.grid_size, params=params)
-                              for f in files])
-        _to_device(arrays, dev)  # warm the copy path
-        _sync(dev)
-        t0 = time.perf_counter()
-        cloud = _to_device(arrays, dev)
-        _sync(dev)
-        dt_up = time.perf_counter() - t0
-        fields = [getattr(cloud, f.name) for f in dataclasses.fields(cloud)]
-        t0 = time.perf_counter()
-        back = [x.cpu() for x in fields]
-        dt_down = time.perf_counter() - t0
-        nbytes = sum(x.numel() * x.element_size() for x in back)
+        wire = wire_transfer(stack_batch([load_xyzirct_arrays(f, params.grid_size, params=params)
+                                          for f in files]), dev)
     finally:
         shutil.rmtree(warm_dir, ignore_errors=True)
         shutil.rmtree(timed_dir, ignore_errors=True)
@@ -413,8 +475,7 @@ def measure_pipeline_span(n_clouds: int = 64, sensor="HDL_64E", device="cuda") -
         "pipeline_bev_write_ms_per_cloud": write_ms,
         "pipeline_serial_sum_ms_per_cloud": device_ms + write_ms,
         "pipeline_write_overlap_hidden_pct": hidden_pct,
-        "transfer_ms_per_batch": (dt_up + dt_down) * 1e3,
-        "transfer_mb_per_batch": 2 * nbytes / 1e6,
+        **wire,
     }
 
 

@@ -8,16 +8,16 @@ outputs one ``output_bvm/<short>.csv`` + ``<short>.png`` (ground-filtered
 ``non_ground_point_cloud/``.  The tree is byte-identical to pctpu's.
 
 A producer thread loads and pads clouds; each batch goes to the device
-once (ordering, ground marking, float BEV: a fixed number of launches a
-batch) and comes back in one copy a field; the writes stay synchronous
-inside the ``"bev"`` stage, as pctpu times them.
+once, in its on-disk widths (ordering, ground marking, float BEV: a fixed
+number of launches a batch), and comes back narrowed on the device, through
+pinned host buffers on a card with one synchronize (``multi_bev``'s wire);
+the writes stay synchronous inside the ``"bev"`` stage, as pctpu times them.
 """
 
 from __future__ import annotations
 
 import os
 
-import numpy as np
 import torch
 
 from pctpu_torch.config import FloatBevConfig, GroundConfig, SensorParams
@@ -26,7 +26,13 @@ from pctpu_torch.io.pcd import write_pcd
 from pctpu_torch.io.png import write_gray_png
 from pctpu_torch.ops.bev import float_bev
 from pctpu_torch.ops.preprocess import order_and_mark_ground
-from pctpu_torch.pipelines.multi_bev import _reset_dir, _short_name, _to_device
+from pctpu_torch.pipelines.multi_bev import (
+    _reset_dir,
+    _short_name,
+    _to_device,
+    _to_host,
+    _wire,
+)
 from pctpu_torch.runtime.loader import (
     batched_prefetch,
     list_pcd_files,
@@ -84,26 +90,19 @@ def run_batch_cloud_manip(
             with timer.stage("bev", items=sum(1 for n in names if n)):
                 labeled, bevs = process_batch(_to_device(arrays, device), params, ground_cfg,
                                               bev_cfg, compat=compat)
-                xyz = labeled.xyz.cpu().numpy()
-                host = {
-                    "intensity": labeled.intensity.cpu().numpy(),
-                    "row": labeled.row.cpu().numpy().astype(np.uint16),
-                    "col": labeled.col.cpu().numpy().astype(np.uint16),
-                    "t": labeled.t.cpu().numpy().astype(np.uint32),
-                    "label": labeled.label.cpu().numpy().astype(np.int16),
-                }
-                bevs_h = bevs.cpu().numpy()
+                host = _to_host([{**_wire(labeled), "bev": bevs}])
                 for bi, name in enumerate(names):
                     if name is None:
                         continue
                     short = _short_name(name)
                     log.info(f"Converting file: {short}")
-                    write_csv(bvm_dir + short + ".csv", bevs_h[bi])
-                    write_gray_png(bvm_dir + short + ".png", bevs_h[bi])
+                    write_csv(bvm_dir + short + ".csv", host["bev"][bi])
+                    write_gray_png(bvm_dir + short + ".png", host["bev"][bi])
+                    xyz = host["xyz"][bi]
                     write_pcd(
                         non_ground_dir + short + ".pcd",
-                        {"x": xyz[bi, :, 0], "y": xyz[bi, :, 1], "z": xyz[bi, :, 2],
-                         **{k: v[bi] for k, v in host.items()}},
+                        {"x": xyz[:, 0], "y": xyz[:, 1], "z": xyz[:, 2],
+                         **{k: host[k][bi] for k in ("intensity", "row", "col", "t", "label")}},
                     )
 
     avg = timer.average_ms("bev")

@@ -243,9 +243,14 @@ def test_measure_pipeline_span_plumbing(monkeypatch):
     assert wall <= out["pipeline_serial_sum_ms_per_cloud"] * 1.25
     assert 0.0 <= out["pipeline_write_overlap_hidden_pct"] <= 100.0
     assert out["transfer_ms_per_batch"] > 0
-    # one batch of 2 clouds, uploaded wide (xyz, intensity, row, col, t,
-    # label: 36 B a slot; count: 8 B a cloud), both ways
-    assert out["transfer_mb_per_batch"] == 2 * 2 * (36 * PARAMS.grid_size + 8) / 1e6
+    # one batch of 2 clouds in the on-disk widths (xyz, intensity, row, col,
+    # t, label: 26 B a slot; count: 4 B a cloud) up, the labeled fields back
+    assert out["transfer_mb_per_batch"] == 2 * (2 * 26 * PARAMS.grid_size + 4) / 1e6
+    assert out["transfer_mb_up"] - out["transfer_mb_back"] == pytest.approx(2 * 4 / 1e6)
+    assert out["transfer_pinned"] is False  # the CPU path pins nothing
+    # the same batch over the wide wire (36 B a slot, 8 B a cloud), both ways
+    assert out["wide_transfer_mb_per_batch"] == 2 * 2 * (36 * PARAMS.grid_size + 8) / 1e6
+    assert out["wide_transfer_ms_per_batch"] > 0
     assert not any(k.startswith("tunnel") or k.endswith("pcie_estimate") for k in out)
 
 

@@ -713,3 +713,91 @@ def test_sharded_nn_1_on_a_logical_mesh(dev):
             q, qm, t, tm)
         want = nn_1(q, qm, t, tm)
         assert torch.equal(got[0], want[0]) and _bit_equal(got[1:], want[1:]), points
+
+
+def nan_normal_scene():
+    """pctpu's ``tests/test_pallas_knn.py:133`` scene, as numpy arrays
+    (src, src mask, tgt, tgt mask, normals, normal mask, guess): two walls,
+    one excluded target with a NaN normal parked far away, where the pruned
+    path's idx-0 convention for unmatched queries can land, and masked
+    source padding."""
+    rng = np.random.default_rng(3)
+    n = 80
+    u = rng.uniform(-6, 6, n)
+    wall = rng.integers(0, 2, n)
+    x = np.where(wall == 0, u, -4.0 + rng.normal(0, 0.01, n))
+    y = np.where(wall == 0, 4.0 + rng.normal(0, 0.01, n), u)
+    tgt = np.stack([x, y, np.zeros(n)], 1).astype(np.float32)
+    nrm = np.where(wall[:, None] == 0, np.array([[0.0, 1.0, 0.0]], np.float32),
+                   np.array([[1.0, 0.0, 0.0]], np.float32)).astype(np.float32)
+    ok = np.ones(n, bool)
+    tgt[0] = [-100.0, -100.0, 0.0]
+    nrm[0] = np.nan
+    ok[0] = False
+    src = (tgt[5:65] - np.float32([0.2, -0.1, 0.0])).astype(np.float32)
+    sm = np.ones(60, bool)
+    sm[55:] = False
+    return src, sm, tgt, np.ones(n, bool), nrm, ok, np.eye(4, dtype=np.float32)
+
+
+NAN_NORMAL_ICP = dict(max_correspondence_distance=2.0, max_iterations=6, point_to_plane=True)
+
+
+def icp_nan_normal(device, nn_impl):
+    """``icp_point_to_plane`` on :func:`nan_normal_scene` on ``device``."""
+    from pctpu_torch.config import IcpConfig
+    from pctpu_torch.ops.icp import icp_point_to_plane
+
+    args = [torch.from_numpy(a).to(device) for a in nan_normal_scene()]
+    return icp_point_to_plane(*args, IcpConfig(**NAN_NORMAL_ICP), nn_impl=nn_impl).numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nn_impl", ["pruned", "xla"])
+def test_icp_pruned_nan_normal_not_poisoning(dev, nn_impl):
+    """(tests/test_pallas_knn.py:133) A NaN normal on an excluded target and
+    masked source padding do not poison the point-to-plane solve on the
+    card, through the pruned kernel or the brute force: finite, and within
+    1e-5 of the CPU brute force (held against pctpu by
+    ``test_torch_nn_pruned.py``)."""
+    got, want = icp_nan_normal(dev, nn_impl), icp_nan_normal("cpu", "xla")
+    assert np.isfinite(got.transform).all() and np.isfinite(got.fitness)
+    np.testing.assert_allclose(got.transform, want.transform, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_wire_pinned_round_trip(dev):
+    """The BEV pipelines' wire on the card, a batch of 8 HDL-64E-sized
+    clouds of random bits: the upload lands on the card in the on-disk
+    widths, the copy back comes through pinned host tensors with every bit
+    of every field, and one batch's arrays are unchanged after the next
+    batch's copy back."""
+    from pctpu_torch.pipelines.multi_bev import _to_device, _to_host, _upload, _wire
+
+    rng = np.random.default_rng(11)
+    b, c = 8, 133312
+
+    def batch():
+        return {"xyz": rng.integers(0, 2**32, (b, c, 3), np.uint32).view(np.float32),
+                "intensity": rng.integers(0, 2**32, (b, c), np.uint32).view(np.float32),
+                "row": rng.integers(0, 2**16, (b, c), np.uint16),
+                "col": rng.integers(0, 2**16, (b, c), np.uint16),
+                "t": rng.integers(0, 2**32, (b, c), np.uint32),
+                "label": rng.integers(-2**15, 2**15, (b, c), np.int16),
+                "count": np.full(b, c, np.int32)}
+
+    first_in, second_in = batch(), batch()
+    up = _upload(first_in, dev)
+    assert {k: (x.device, x.dtype) for k, x in up.items()} == {
+        "xyz": (dev, torch.float32), "intensity": (dev, torch.float32),
+        "row": (dev, torch.int16), "col": (dev, torch.int16), "t": (dev, torch.int32),
+        "label": (dev, torch.int16), "count": (dev, torch.int32)}
+    first = _to_host([_wire(_to_device(first_in, dev))])
+    kept = {k: a.copy() for k, a in first.items()}
+    second = _to_host([_wire(_to_device(second_in, dev))])
+    for k, a in first.items():
+        assert torch.from_numpy(a).is_pinned(), k
+        np.testing.assert_array_equal(a.view(np.uint8), first_in[k].view(np.uint8), err_msg=k)
+        np.testing.assert_array_equal(a.view(np.uint8), kept[k].view(np.uint8), err_msg=k)
+        np.testing.assert_array_equal(second[k].view(np.uint8), second_in[k].view(np.uint8),
+                                      err_msg=k)

@@ -440,6 +440,24 @@ def test_entry_points_default_to_cuda(entry):
     assert inspect.signature(getattr(mod, fn)).parameters["device"].default == "cuda"
 
 
+@pytest.mark.parametrize("nn_impl", ["pruned", "xla"])
+def test_icp_pruned_nan_normal_not_poisoning(nn_impl):
+    """(tests/test_pallas_knn.py:133) A NaN normal on an excluded target
+    (normal_mask False) and masked source padding do not NaN-poison the
+    point-to-plane solve, through the pruned path's twin (the idx-0
+    convention for unmatched queries) or the brute force: both finite,
+    within 1e-5 of pctpu's ``nn_impl="xla"`` on the same inputs."""
+    from pctpu.config import IcpConfig as JIcpConfig
+    from pctpu.ops.icp import icp_point_to_plane as jicp
+
+    from .test_torch_cuda_kernels import NAN_NORMAL_ICP, icp_nan_normal, nan_normal_scene
+
+    want = jicp(*nan_normal_scene(), JIcpConfig(**NAN_NORMAL_ICP), nn_impl="xla")
+    got = icp_nan_normal("cpu", nn_impl)
+    assert np.isfinite(got.transform).all() and np.isfinite(got.fitness)
+    np.testing.assert_allclose(got.transform, np.asarray(want.transform), atol=1e-5)
+
+
 def test_port_imports_no_jax():
     """Importing the port pulls in neither jax nor pctpu, and builds
     nothing: the CUDA library is compiled at first launch only.  The tools
@@ -462,6 +480,7 @@ def test_port_imports_no_jax():
         "import pctpu_torch.ops.normals2d, pctpu_torch.ops.voxel, pctpu_torch.ops.topflatten\n"
         "import pctpu_torch.ops.transform, pctpu_torch.experiments.registration_ab\n"
         "import pctpu_torch.experiments.icp_ops\n"
+        "import pctpu_torch.experiments.wire_ab\n"
         "import pctpu_torch.pipelines.multi_bev, pctpu_torch.cli.batch_multi_bev_gen\n"
         "import pctpu_torch.experiments.scene, pctpu_torch.experiments.bev_ab\n"
         "import pctpu_torch.experiments.segment_sums_probe\n"
