@@ -27,22 +27,29 @@ Phases, each of which raises on failure (the exit code is then not 0):
    the longest segment's chain of dependent adds), per-kernel profiler
    times, the launches a call makes and ptxas's registers.  Zero index
    mismatches and bit-equal results are required.  For each 1-NN case: the warp design
-   (``csrc/nn_pruned_warp.cu``) with and without a prepared target, its prep
+   (``csrc/nn_pruned_warp.cu``: seed writing a work list, persistent main
+   grid over it) with and without a prepared target, the first warp design
+   (its dense main grid, ``nn_1_pruned_batched_v1``), its prep
    kernel, K4's <128, 1024, prod> instance (``csrc/nn_variant.cu``, K1's
    shape on the variants' template) and the earlier block design (that
    instance of K4's first design, ``csrc/nn_pruned.cu``), each against the
    twin, then CUDA-event times of each (the launches alone and with the
-   wrapper), the pairs the warp design visits (its counting
+   wrapper; the two warp designs in turns), the pairs the warp design visits
+   and its work items against the dense grid's blocks (its counting
    instance), the per-query 32-group oracle's pairs and the bound; one pass
-   on a prepared target must put at most 3 kernels on the card;
+   on a prepared target must put at most 3 kernels and the list's memset on
+   the card;
    ``torch.cdist(q, t).min(1)`` at the fine shape (both passes), the whole shape and at
    20,000 × 300,000; then K1 over a problem axis — 16 fine problems at the
    49,152 bucket, each on a target of its own (thr 1 m), and 32 coarse
    problems of 8,192 flat points, two yaw guesses on each of 16 targets
-   (thr 10 m): the batched prep (one launch) and pass (at most 3 kernels)
-   bit-equal to the twin and to the 16 / 32 unbatched kernel calls, the
-   batched pass and the unbatched passes timed in turns, per-kernel
-   profiler times and the bound (the sum of the single bounds);
+   (thr 10 m): the batched prep (one launch) and pass (at most 3 kernels
+   and a memset) bit-equal to the twin, to the first warp design's pass and
+   to the 16 / 32 unbatched kernel calls, the batched pass, the first
+   design's and the unbatched passes timed in turns (alone and with the
+   wrappers), per-kernel profiler times of both designs, the work items
+   against the dense grid's blocks and the bound (the sum of the single
+   bounds);
 4. the voxel grid on the card twice and on the CPU: bit-identical;
 5. the slice: a keyframe tree of the 65,536-capacity registration scene and
    moved copies with known yaw and translation
@@ -104,7 +111,10 @@ Phases, each of which raises on failure (the exit code is then not 0):
    16, host syncs (torch's sync debug mode) per pair, per batch iteration
    of the ICP loop and by the line that made them, kernels on the card per
    pair and per problem iteration (torch.profiler), and the
-   ``BucketSpec`` hits and misses;
+   ``BucketSpec`` hits and misses; then the top-part CLI at 16 once more
+   with the ICP's batched pass swapped for the first warp design's
+   (``nn_pruned_batched_v1`` launched, ``nn_pruned_batched`` not), its
+   pairs bit-equal to the work-list design's;
 11. ``batch_cloud_manip`` and ``cloud_manip`` on a ray-cast HDL-64E drive (29
    grid-ordered clouds, two raw, one over capacity): one batch of 8 through
    the device step (ordering, ground marking, float BEV) bit-equal to the
@@ -264,6 +274,7 @@ def print_ptxas(path) -> dict[str, str]:
                               r"|bev_raster_v1_kernel|bev_expand_v1_kernel"
                               r"|bev_raster_kernel|bev_expand_kernel|nn_prep_kernel"
                               r"|nn_seed_kernel|nn_main_kernel|nn_finish_kernel"
+                              r"|nn_seed_v1_kernel|nn_main_v1_kernel"
                               r"|pca_windows_kernel|pca_moments_kernel)", name)
             if short:  # the kernel's own template arguments, not its parameters'
                 args = re.match(r"I((?:L[ib]\d+E)+)E", name[short.end():])
@@ -424,13 +435,16 @@ def sums_entry(name: str, replaces: str, launches: int, case: dict) -> dict:
 
 
 def nn_case(name: str, args, md, smi: str) -> dict:
-    """One phase-3 case of the bbox-pruned 1-NN: the warp design with and
-    without a prepared target, the prep kernel, K4's <128, 1024, prod>
-    instance (``csrc/nn_variant.cu``, K1's shape on the variants' template)
-    and the earlier block design (the same instance of the first design,
-    ``nn_1_pruned_variant_v1``), each held bit for bit against its twin;
-    then their times, the pairs the warp design visits (its counting
-    instance), the per-query 32-group oracle's pairs and the bound."""
+    """One phase-3 case of the bbox-pruned 1-NN: the warp design (its work
+    list, P = 1) with and without a prepared target, the first warp design
+    (``nn_1_pruned_batched_v1``: dense main grid), the prep kernel, K4's
+    <128, 1024, prod> instance (``csrc/nn_variant.cu``, K1's shape on the
+    variants' template) and the earlier block design (the same instance of
+    the first design, ``nn_1_pruned_variant_v1``), each held bit for bit
+    against its twin; then their times (the two warp designs in turns), the
+    pairs the warp design visits and its work items against the dense grid's
+    blocks (its counting instance), the per-query 32-group oracle's pairs and
+    the bound."""
     from pctpu_torch.experiments.card import (NN_FLOP_PER_PAIR, bound_ms, cuda_ms, oracle_pairs,
                                               profile_calls)
     from pctpu_torch.ops import cuda_knn
@@ -448,6 +462,7 @@ def nn_case(name: str, args, md, smi: str) -> dict:
             ("warp design", cuda_knn.nn_1_pruned(*args, max_distance=md)),
             ("warp design, prepared", cuda_knn.nn_1_pruned(q, qm, max_distance=md,
                                                            prepared=prep)),
+            ("first warp design", cuda_knn.nn_1_pruned_batched_v1(q, qm, prep, md)),
             ("K4 <128, 1024, prod>", cuda_knn.nn_1_pruned_variant(*args, md, cuda_knn.TQ,
                                                                   cuda_knn.TT, "prod")),
             ("block design", cuda_knn.nn_1_pruned_variant_v1(*args, md, cuda_knn.TQ,
@@ -456,14 +471,20 @@ def nn_case(name: str, args, md, smi: str) -> dict:
         err = max(err, compare(f"{name}: {label}", got, want))
     d2 = want[1]
     launch = cuda_knn._pass_launcher(q, qm, prep, thr2)[0]
+    warp_v1 = cuda_knn._pass_launcher(q, qm, prep, thr2, v1=True)[0]
+    turns = {"alone": [], "v1_alone": []}
+    for k in ("alone", "v1_alone", "v1_alone", "alone"):
+        turns[k].append(cuda_ms(launch if k == "alone" else warp_v1, reps=50))
     old = cuda_knn._pruned_launcher(q, qm, t, tm, thr2, cuda_knn.TQ, cuda_knn.TT, "prod")[0]
     variant_prep = cuda_knn.prepare_variant_target(t, tm, cuda_knn.TT)
     variant = cuda_knn._variant_launcher(q, qm, variant_prep, t, thr2, cuda_knn.TQ,
                                          cuda_knn.TT, "prod")[0]
     out = {
-        "alone": cuda_ms(launch, reps=50),
+        **{k: min(v) for k, v in turns.items()},
         "wrapper": cuda_ms(lambda: cuda_knn.nn_1_pruned(q, qm, max_distance=md,
                                                         prepared=prep), reps=50),
+        "v1_wrapper": cuda_ms(lambda: cuda_knn.nn_1_pruned_batched_v1(q, qm, prep, md),
+                              reps=50),
         "unprepared": cuda_ms(lambda: cuda_knn.nn_1_pruned(*args, max_distance=md), reps=50),
         "prep": cuda_ms(lambda: cuda_knn.prepare_target(t, tm), reps=50),
         "prep_twin": cuda_ms(lambda: cuda_knn.prepare_target_reference(t, tm), reps=5),
@@ -480,10 +501,12 @@ def nn_case(name: str, args, md, smi: str) -> dict:
         "err": err, "prep_err": prep_err, "library": None,
     }
     by_kernel = profile_calls(launch, reps=20)[2]
+    v1_by_kernel = profile_calls(warp_v1, reps=20)[2]
     variant_by_kernel = profile_calls(variant, reps=20)[2]
-    visited = cuda_knn.pairs_visited(q, qm, prep, md)
+    visited, items = cuda_knn.pass_counts(q, qm, prep, md)
     oracle = oracle_pairs(q, qm, d2, prep.group_box, thr2)
     nq, nt = q.shape[0], t.shape[0]
+    warps, tiles = -(-nq // 32), prep.tile_box.shape[-1]
     # the bytes the work needs, no padding: the packed target's 12 B a point
     # (a masked point is +inf, so no mask) and six box rows of 4 B for each
     # 32-point group and 1,024-point tile; each query's 13 B, 8 B out
@@ -494,33 +517,41 @@ def nn_case(name: str, args, md, smi: str) -> dict:
     print(f"  {name}: Q={nq} T={nt} found={int(torch.isfinite(d2).sum())}; warp design "
           f"alone {out['alone']:.4f} ms, with wrapper {out['wrapper']:.4f} ms, unprepared "
           f"{out['unprepared']:.4f} ms (prep {out['prep']:.4f} ms, its twin "
-          f"{out['prep_twin']:.4f} ms); K4 <128, 1024, prod> alone {out['variant_alone']:.4f} "
+          f"{out['prep_twin']:.4f} ms); first warp design alone {out['v1_alone']:.4f} ms, with "
+          f"wrapper {out['v1_wrapper']:.4f} ms (the two alone in turns, the least of two each); "
+          f"work items {items} against the dense grid's {-(-warps // 4) * tiles} blocks of 4 "
+          f"warps ({warps * tiles} warp items); K4 <128, 1024, prod> alone {out['variant_alone']:.4f} "
           f"ms, with wrapper {out['variant_wrapper']:.4f} ms (its prep "
           f"{out['variant_prep']:.4f} ms), {out['variant_alone'] / out['alone']:.3f}x K1 "
           f"alone; block design alone {out['old_alone']:.4f} ms, with "
           f"wrapper {out['old_wrapper']:.4f} ms; twin {out['twin']:.4f} ms; pairs visited "
           f"{visited} ({visited / (nq * nt):.6f} of Q·T), oracle {oracle}; bound "
           f"{out['bound']:.6f} ms ({out['bound_by']}: {n_bytes} B, "
-          f"{NN_FLOP_PER_PAIR * oracle} flop), reached {out['bound'] / out['alone']:.4f} (K4 "
+          f"{NN_FLOP_PER_PAIR * oracle} flop), reached {out['bound'] / out['alone']:.4f} (first "
+          f"warp design {out['bound'] / out['v1_alone']:.4f}, K4 "
           f"<128, 1024, prod> {out['bound'] / out['variant_alone']:.4f}, block design "
           f"{out['bound'] / out['old_alone']:.4f}); prep bound "
           f"{out['prep_bound']:.6f} ms ({out['prep_bound_by']}: {nt * 13 + target_bytes} B); "
           f"device ms by kernel (torch.profiler) "
-          f"{ {k: round(v, 6) for k, v in by_kernel.items()} }, K4's "
+          f"{ {k: round(v, 6) for k, v in by_kernel.items()} }, the first warp design's "
+          f"{ {k: round(v, 6) for k, v in v1_by_kernel.items()} }, K4's "
           f"{ {k: round(v, 6) for k, v in variant_by_kernel.items()} }; card {smi}")
+    out["items"] = items
     return out
 
 
 def batched_nn_case(name: str, q, qm, t, tm, md, smi: str, library: bool = False) -> dict:
     """K1 over a problem axis: P problems ``q`` (P, Q, 3) on Bt targets ``t``
     (Bt, T, 3), problem p in target p // (P / Bt).  The batched prep (one
-    launch) and pass (three launches) bit for bit against the twin and
-    against Bt / P unbatched kernel calls; then, in turns in this call, the
-    batched pass alone and the P unbatched passes alone (CUDA events), the
-    prep, per-kernel profiler times and what a call puts on the card, the
-    twin, and the bound: the sum of the problems' single bounds, each
-    counted as phase 3 counts one pass's (bytes the work needs, 9 flop an
-    oracle pair).  ``library``: ``torch.cdist(q, t).min(1)`` once a problem
+    launch) and pass (a memset and three launches) bit for bit against the
+    twin, the first warp design's pass (``nn_1_pruned_batched_v1``, three
+    launches) and Bt / P unbatched kernel calls; then, in turns in this
+    call, the batched pass, the first design's and the P unbatched passes
+    alone, and the two designs with their wrappers (CUDA events), the prep,
+    per-kernel profiler times and what a call puts on the card, the work
+    items against the dense grid's blocks, the twin, and the bound: the sum
+    of the problems' single bounds, each counted as phase 3 counts one
+    pass's (bytes the work needs, 9 flop an oracle pair).  ``library``: ``torch.cdist(q, t).min(1)`` once a problem
     (one call over the batch would hold P·Q·T distances)."""
     from pctpu_torch.experiments.card import (NN_FLOP_PER_PAIR, bound_ms, cuda_ms, oracle_pairs,
                                               profile_calls)
@@ -545,28 +576,37 @@ def batched_nn_case(name: str, q, qm, t, tm, md, smi: str, library: bool = False
     torch.cuda.synchronize()
     twin_ms = (time.perf_counter() - t0) * 1e3
     err = compare(f"{name}: batched pass against the twin", got, want)
+    v1_err = compare(f"{name}: the first warp design against the twin",
+                     cuda_knn.nn_1_pruned_batched_v1(q, qm, prep, md), want)
     one = [cuda_knn.nn_1_pruned(q[k], qm[k], prepared=singles[k // per], max_distance=md)
            for k in range(n_problems)]
     compare(f"{name}: batched pass against {n_problems} unbatched kernel calls", got,
             [torch.stack([o[0] for o in one]), torch.stack([o[1] for o in one])])
     batched = cuda_knn._pass_launcher(q, qm, prep, thr2)[0]
+    v1 = cuda_knn._pass_launcher(q, qm, prep, thr2, v1=True)[0]
     unbatched = [cuda_knn._pass_launcher(q[k], qm[k], singles[k // per], thr2)[0]
                  for k in range(n_problems)]
-    timed = {"batched": batched, "unbatched": lambda: [f() for f in unbatched]}
+    timed = {"batched": batched, "v1": v1, "unbatched": lambda: [f() for f in unbatched],
+             "wrapper": lambda: cuda_knn.nn_1_pruned_batched(q, qm, prep, md),
+             "v1_wrapper": lambda: cuda_knn.nn_1_pruned_batched_v1(q, qm, prep, md)}
     ms = {k: [] for k in timed}
-    for k in ("batched", "unbatched", "unbatched", "batched"):
+    for k in ("batched", "v1", "unbatched", "wrapper", "v1_wrapper", "v1_wrapper", "wrapper",
+              "unbatched", "v1", "batched"):
         ms[k].append(cuda_ms(timed[k], reps=20))
     ms = {k: min(v) for k, v in ms.items()}
     prep_ms = cuda_ms(lambda: cuda_knn.prepare_targets(t, tm), reps=50)
     prep_twin_ms = cuda_ms(lambda: cuda_knn.prepare_targets_reference(t, tm), reps=2, warmup=1)
     kernels, copies, by_kernel = profile_calls(batched, reps=20)
+    v1_kernels, v1_copies, v1_by_kernel = profile_calls(v1, reps=20)
     prep_kernels, prep_copies, _ = profile_calls(lambda: cuda_knn.prepare_targets(t, tm), reps=20)
-    if kernels > 3 or copies:
+    if kernels > 3 or copies > 1 or v1_kernels > 3 or v1_copies:
         raise AssertionError(f"{name}: a batched pass puts {kernels} kernels + {copies} copies "
-                             "on the card")
+                             f"on the card, the first design's {v1_kernels} + {v1_copies}")
     if prep_kernels != 1 or prep_copies:
         raise AssertionError(f"{name}: the batched prep is {prep_kernels} kernels")
     nq, nt = q.shape[1], t.shape[1]
+    pairs, items = cuda_knn.pass_counts(q, qm, prep, md)
+    warps, tiles = -(-nq // 32), prep.tile_box.shape[-1]
     target_bytes = nt * 12 + 6 * 4 * (-(-nt // cuda_knn.GROUP) + -(-nt // cuda_knn.TT))
     t_bytes = t_ops = bound = 0.0
     for k in range(n_problems):
@@ -582,17 +622,27 @@ def batched_nn_case(name: str, q, qm, t, tm, md, smi: str, library: bool = False
                                   for k in range(n_problems)], reps=1, warmup=1)
         torch.cuda.empty_cache()
     print(f"  {name}: P={n_problems} problems of Q={nq} on Bt={n_targets} targets of T={nt}; "
-          f"batched pass alone {ms['batched']:.4f} ms, the {n_problems} unbatched passes alone "
-          f"{ms['unbatched']:.4f} ms (CUDA events, the least of two turns each); a batched pass "
-          f"puts {kernels} kernels + {copies} copies on the card, the batched prep {prep_kernels} "
-          f"kernel ({prep_ms:.4f} ms, its twin {prep_twin_ms:.4f} ms, bound "
+          f"batched pass alone {ms['batched']:.4f} ms, with wrapper {ms['wrapper']:.4f} ms; "
+          f"the first warp design alone {ms['v1']:.4f} ms, with wrapper {ms['v1_wrapper']:.4f} "
+          f"ms; the {n_problems} unbatched passes alone {ms['unbatched']:.4f} ms (CUDA events, "
+          f"in turns, the least of two turns each); a batched pass puts {kernels} kernels + "
+          f"{copies} copies/memsets on the card (the list's count), the first design's "
+          f"{v1_kernels} + {v1_copies}; work items {items} against the dense grid's "
+          f"{-(-warps // 4) * tiles * n_problems} blocks of 4 warps "
+          f"({warps * tiles * n_problems} warp items), pairs visited {pairs}; the batched prep "
+          f"{prep_kernels} kernel ({prep_ms:.4f} ms, its twin {prep_twin_ms:.4f} ms, bound "
           f"{prep_bound[0]:.6f} ms by {prep_bound[1]}); device ms by kernel (torch.profiler) "
-          f"{ {k: round(v, 6) for k, v in by_kernel.items()} }; twin {twin_ms:.1f} ms; bound "
+          f"{ {k: round(v, 6) for k, v in by_kernel.items()} }, the first design's "
+          f"{ {k: round(v, 6) for k, v in v1_by_kernel.items()} }; twin {twin_ms:.1f} ms; bound "
           f"{bound:.6f} ms (sum of the single bounds; bytes {t_bytes:.6f}, operations "
-          f"{t_ops:.6f}), reached {bound / ms['batched']:.4f}"
+          f"{t_ops:.6f}), reached {bound / ms['batched']:.4f} (the first design "
+          f"{bound / ms['v1']:.4f})"
           + (f"; torch.cdist(q, t).min(1) a problem, {n_problems} calls {lib_ms:.4f} ms"
              if library else "") + f"; card {smi}")
     return {"err": err, "prep_err": prep_err, "ms": ms["batched"], "unbatched_ms": ms["unbatched"],
+            "v1_ms": ms["v1"], "v1_err": v1_err, "wrapper_ms": ms["wrapper"], "v1_wrapper_ms": ms["v1_wrapper"],
+            "items": items, "dense_blocks": -(-warps // 4) * tiles * n_problems,
+            "by_kernel": by_kernel, "v1_by_kernel": v1_by_kernel,
             "plain_ms": twin_ms, "bound": bound, "bound_by": "operations" if t_ops >= t_bytes
             else "bytes", "library_ms": lib_ms, "prep_ms": prep_ms, "prep_plain_ms": prep_twin_ms,
             "prep_bound": prep_bound}
@@ -1539,15 +1589,18 @@ def run_logged(fn, *args):
     return out, captured.getvalue()
 
 
-def pair_batched_phase(dev: torch.device, smi: str, capacity: int = 65536) -> dict:
+def pair_batched_phase(dev: torch.device, smi: str, capacity: int = 65536) -> tuple[dict, dict]:
     """Phase 10 (module docstring).  Returns the launch counts of the
-    top-part CLI's run at ``--pair-batch=16`` (the path's run)."""
+    top-part CLI's run at ``--pair-batch=16`` (the path's run) and, on a
+    card, of the same run with the ICP's batched pass swapped for the first
+    warp design's (``nn_1_pruned_batched_v1``), whose pairs must be bit-equal
+    to the path's."""
     from torch.profiler import ProfilerActivity, profile
 
     from pctpu_torch.cli import batch_top_part_registration as top_cli
     from pctpu_torch.cli import batch_whole_registration as whole_cli
     from pctpu_torch.experiments.scene import TREE_PAIRS_20, TREE_POSES, registration_tree
-    from pctpu_torch.ops import _cuda, icp
+    from pctpu_torch.ops import _cuda, cuda_knn, icp
     from pctpu_torch.pipelines import registration
 
     tree = os.path.join(ROOT, "build", "chip_smoke_batched")
@@ -1559,7 +1612,8 @@ def pair_batched_phase(dev: torch.device, smi: str, capacity: int = 65536) -> di
     chunks = [min(16, n - k) for k in range(0, n, 16)]
     specs, whole_calls, seq_fine = [], [], []
     real = {"spec": registration.BucketSpec, "whole": registration.register_whole_pairs,
-            "icp": registration.icp_point_to_point, "top": top_cli.run_batch_top_part_registration}
+            "icp": registration.icp_point_to_point, "top": top_cli.run_batch_top_part_registration,
+            "pass": icp.nn_1_pruned_batched}
 
     class Spec(real["spec"]):
         def __init__(self):
@@ -1628,6 +1682,15 @@ def pair_batched_phase(dev: torch.device, smi: str, capacity: int = 65536) -> di
                 if (kind, batch) not in results or wall < results[kind, batch]["wall"]:
                     results[kind, batch] = {"wall": wall, "launches": launches, "log": log,
                                             "pairs": pairs, "report": report}
+        # the first warp design on the same path: the ICP's batched pass
+        # swapped for it (it has no CPU mode, so a CPU rehearsal skips this)
+        first = None
+        if dev.type == "cuda":
+            icp.nn_1_pruned_batched = cuda_knn.nn_1_pruned_batched_v1
+            try:
+                first = run("top", 16, tag="v1")
+            finally:
+                icp.nn_1_pruned_batched = real["pass"]
         # untimed: host syncs (torch's sync debug mode), ICP iterations and
         # every kernel the card ran (torch.profiler)
         counted = {}
@@ -1662,6 +1725,27 @@ def pair_batched_phase(dev: torch.device, smi: str, capacity: int = 65536) -> di
 
     def relative(q_i: int, m_i: int) -> np.ndarray:
         return TREE_POSES[m_i] @ np.linalg.inv(TREE_POSES[q_i])
+
+    first_launches = {}
+    if first is not None:
+        wall, first_launches, _, pairs, report = first
+        require_launched(first_launches, ("nn_pruned_batched_v1",), "the top-part CLI at "
+                         "--pair-batch=16 on the first warp design")
+        want = results["top", 16]["pairs"]
+        same = all(a[0] == b[0] and a[1] == b[1] and np.array_equal(
+            np.asarray(a[2]).view(np.uint32), np.asarray(b[2]).view(np.uint32))
+            for a, b in zip(pairs, want))
+        if first_launches.get("nn_pruned_batched") or len(pairs) != n or not same:
+            raise AssertionError("the top-part CLI at --pair-batch=16 on the first warp design: "
+                                 f"pairs differ from the work-list design's, or launches "
+                                 f"{nonzero(first_launches)}")
+        lines = [open(r).read().splitlines() for r in (report, results["top", 16]["report"])]
+        print(f"batch_top_part_registration --pair-batch=16 on the first warp design (ICP's "
+              f"batched pass nn_1_pruned_batched_v1): {n} pairs in {wall:.3f} s = "
+              f"{n / wall:.4f} pairs/s (one untimed-order run, after the turns); successes, "
+              f"fitnesses and transforms bit-equal to the work-list design's, "
+              f"{sum(a == b for a, b in zip(*lines))} of {len(lines[0])} report lines "
+              f"byte-equal; launches {nonzero(first_launches)}; card {smi}")
 
     for kind in ("top", "whole"):
         one, many = results[kind, 1], results[kind, 16]
@@ -1706,7 +1790,7 @@ def pair_batched_phase(dev: torch.device, smi: str, capacity: int = 65536) -> di
               + (f"; BucketSpec hits {specs[-1].hits}, misses {specs[-1].misses} in one run "
                  f"of {len(chunks)} batches" if kind == "top" and specs else ""))
     shutil.rmtree(tree)
-    return results["top", 16]["launches"]
+    return results["top", 16]["launches"], first_launches
 
 
 CAMPAIGN_ARGV = ["--start=3000000", "--cases=20", "--sensors", "--native=50", "--adversarial=6",
@@ -2194,6 +2278,10 @@ def tools_phase(dev: torch.device, smi: str) -> collections.Counter:
           f"syncs {floor['host_syncs_per_pair']:.2f} a pair; {wall:.1f} s; launches {launches}")
     top = list(floor["launches_per_pair"].items())[:10]
     print("  kernels a pair, most launched: " + ", ".join(f"{k} {v:.2f}" for k, v in top))
+    busy = floor["ms_per_pair_device_serial"]
+    print("  device ms a pair by kernel, largest first (share of the busy time): " + ", ".join(
+        f"{k} {v:.6f} ({v / busy:.4f})"
+        for k, v in list(floor["device_ms_per_pair_by_kernel"].items())[:10]))
     print(f"  host syncs a pair by line: {floor['sync_sites_per_pair']}")
 
     # --- 15c. the scaling harness: one device and a logical mesh of two ----
@@ -2507,10 +2595,11 @@ def main() -> int:
         lambda: cuda_knn.nn_1_pruned(*fine_args[:2], max_distance=1.0, prepared=fine_prep))
     bare = profile_calls(lambda: cuda_knn.nn_1_pruned(*fine_args, max_distance=1.0))
     print(f"  one pass on a prepared target (torch.profiler over 50): {kernels} kernels + "
-          f"{copies} copies/memsets, kernels {sorted(by_kernel)}; unprepared: {bare[0]} kernels + "
-          f"{bare[1]} copies/memsets")
-    if kernels > 3 or copies:
-        raise AssertionError("a pass on a prepared target launches more than 3 kernels")
+          f"{copies} copies/memsets (the work list's count), kernels {sorted(by_kernel)}; "
+          f"unprepared: {bare[0]} kernels + {bare[1]} copies/memsets")
+    if kernels > 3 or copies > 1:
+        raise AssertionError("a pass on a prepared target launches more than 3 kernels and "
+                             "the list's memset")
     # the library yardstick: torch.cdist(q, t).min(1) at the fine and whole shapes
     for name in ("fine thr 1 m", "fine fitness (no thr)", "whole thr 4 m, yaw guess"):
         q, _, t, _ = next(a for n, a, _ in nn_cases if n == name)
@@ -2555,7 +2644,8 @@ def main() -> int:
                                      [m @ g for m in moves for g in (np.eye(4), flip)]), ones)
     b_ct, b_ctm = sorted_batch(moved(flat_t.expand(16, -1, -1), moves), ones)
     print("bbox-pruned 1-NN over a problem axis (csrc/nn_pruned_warp.cu: one prep launch for "
-          "the targets, one pass of 3 launches for all problems)")
+          "the targets, one pass of a memset and 3 launches for all problems; the first warp "
+          "design's pass, 3 launches with a dense main grid, beside it)")
     batched_fine = batched_nn_case("batched fine thr 1 m", b_fq, b_fqm, b_ft, b_ftm, 1.0, smi,
                                    library=True)
     batched_coarse = batched_nn_case("batched coarse thr 10 m", b_cq, b_cqm, b_ct, b_ctm, 10.0, smi)
@@ -2769,7 +2859,7 @@ def main() -> int:
     bev_kernels = multi_bev_phase(dev, smi, ptxas=ptxas, clock_mhz=clock_mhz)
 
     # --- 10. pair-batched registration ---------------------------------------
-    batched_launches = pair_batched_phase(dev, smi)
+    batched_launches, v1_launches = pair_batched_phase(dev, smi)
 
     # --- 11. batch_cloud_manip and cloud_manip -------------------------------
     cloud_manip_phase(dev, smi)
@@ -2817,7 +2907,21 @@ def main() -> int:
          "plain_ms": batched_fine["plain_ms"], "bound_ms": batched_fine["bound"],
          "bound_by": batched_fine["bound_by"], "library_ms": batched_fine["library_ms"],
          "unbatched_ms": batched_fine["unbatched_ms"], "coarse_ms": batched_coarse["ms"],
-         "coarse_unbatched_ms": batched_coarse["unbatched_ms"]},
+         "coarse_unbatched_ms": batched_coarse["unbatched_ms"],
+         "wrapper_ms": batched_fine["wrapper_ms"], "v1_ms": batched_fine["v1_ms"],
+         "coarse_v1_ms": batched_coarse["v1_ms"], "items": batched_fine["items"],
+         "dense_blocks": batched_fine["dense_blocks"],
+         "coarse_items": batched_coarse["items"],
+         "coarse_dense_blocks": batched_coarse["dense_blocks"]},
+        {"name": "nn_pruned_batched_v1", "route": "cuda",
+         "source": "pctpu_torch/csrc/nn_pruned_warp.cu",
+         "replaces": "pctpu/ops/pallas_knn.py:275",
+         "launches": v1_launches["nn_pruned_batched_v1"],
+         "max_abs_err": max(batched_fine["v1_err"], batched_coarse["v1_err"]),
+         "ms": batched_fine["v1_ms"], "plain_ms": batched_fine["plain_ms"],
+         "bound_ms": batched_fine["bound"], "bound_by": batched_fine["bound_by"],
+         "library_ms": batched_fine["library_ms"], "wrapper_ms": batched_fine["v1_wrapper_ms"],
+         "coarse_ms": batched_coarse["v1_ms"], "design": "first (dense main grid), kept"},
         {"name": "nn_prep_batched", "route": "cuda",
          "source": "pctpu_torch/csrc/nn_pruned_warp.cu",
          "replaces": "pctpu/ops/pallas_knn.py:275", "launches": batched_launches["nn_prep_batched"],

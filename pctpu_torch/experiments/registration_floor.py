@@ -33,7 +33,8 @@ the chain's outputs summed over the timed batches) and
 ``device_busy_share_profiled_window`` (busy over the profiled wall: both
 from one window), ``device_busy_share`` (busy over the unprofiled wall: an
 estimate, which takes the profiler to lengthen the host's work and not the
-card's — unchecked),
+card's — unchecked), ``device_ms_per_pair_by_kernel`` (that busy time a pair
+split by kernel, copy and memset name, largest first: the floor's shares),
 kernels and hand-kernel launches a pair by name, host syncs a pair by the
 line that made them, ICP batch iterations, the card's name and power
 limit, and ``register_pairs_bit_equal``: the first timed batch's fine
@@ -205,6 +206,7 @@ def run(argv: list[str] | None = None, dev: torch.device | None = None) -> dict:
         "ms_per_pair_wall_profiled": None, "device_busy_share": None,
         "device_busy_share_profiled_window": None, "kernels_per_pair": None,
         "copies_per_pair": None, "launches_per_pair": None,
+        "device_ms_per_pair_by_kernel": None,
         "hand_launches_per_pair": {k: v / n for k, v in hand.items()},
         "host_syncs_per_pair": None, "sync_sites_per_pair": None,
         "icp_batch_iterations_per_batch": iterations["iterations"] / n_steps,
@@ -237,6 +239,8 @@ def run(argv: list[str] | None = None, dev: torch.device | None = None) -> dict:
             "copies_per_pair": sum(v for k, v in counts.items() if card.is_copy(k)) / n,
             "launches_per_pair": {k: v / n for k, v in
                                   sorted(counts.items(), key=lambda kv: -kv[1])},
+            "device_ms_per_pair_by_kernel": {k: v / n for k, v in
+                                             sorted(ms.items(), key=lambda kv: -kv[1])},
             "host_syncs_per_pair": sum(sites.values()) / n,
             "sync_sites_per_pair": {k: v / n for k, v in sites.most_common()},
         })

@@ -48,7 +48,7 @@ NVCC_FLAGS = (
 
 launch_counts: dict[str, int] = {
     "nn_prep": 0, "nn_pruned": 0, "nn_pruned_count": 0, "nn_prep_batched": 0,
-    "nn_pruned_batched": 0, "segment_sum4": 0, "nn_fused": 0,
+    "nn_pruned_batched": 0, "nn_pruned_batched_v1": 0, "segment_sum4": 0, "nn_fused": 0,
     "nn_variant": 0, "nn_variant_prep": 0, "nn_variant_v1": 0, "ground_sums": 0, "bev_raster": 0, "segment_sum_walk": 0,
     "nn_fused_v1": 0, "bev_raster_v1": 0, "pca_moments": 0,
 }
@@ -140,6 +140,10 @@ def library() -> ctypes.CDLL:
             p, p, i64, i64, p, p, p, i64, i64, ctypes.c_float, p, p, p, p, p,
         ]
         lib.pctpu_nn_pruned_batched.restype = ctypes.c_int
+        lib.pctpu_nn_pruned_batched_v1.argtypes = [
+            p, p, i64, i64, p, p, p, i64, i64, ctypes.c_float, p, p, p, p,
+        ]
+        lib.pctpu_nn_pruned_batched_v1.restype = ctypes.c_int
         lib.pctpu_nn_variant_prep.argtypes = [p, p, i64, i64, ctypes.c_int, p, p, p, p]
         lib.pctpu_nn_variant_prep.restype = ctypes.c_int
         lib.pctpu_nn_variant.argtypes = [
@@ -191,6 +195,13 @@ def check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
     launch_counts[name] += 1
+
+
+def require_card(device: torch.device, what: str) -> None:
+    """Raise unless ``device`` is a CUDA card: ``what`` launches kernels and
+    has no CPU mode."""
+    if device.type != "cuda":
+        raise ValueError(f"{what} need CUDA tensors, got {device}")
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,

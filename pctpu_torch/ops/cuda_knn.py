@@ -16,7 +16,14 @@ kernel under ``jax.vmap`` in the pair-batched registration stages): one prep
 launch packs Bt targets of one length, and one pass of three launches
 searches P problems, problem p in target p // (P / Bt), bit-equal problem by
 problem to P single passes; their twins run the single twins per target and
-problem.  The Morton sort key and
+problem.  A pass (one problem is the P = 1 case) is a memset and three
+launches: the seed also writes a work list of the (problem, query warp,
+target tile) items that its bound cannot rule out, and a persistent main
+grid works through that list on the card; its scratch holds the list, room
+for every item (``_pass_scratch_words``).  ``nn_1_pruned_batched_v1`` is the
+first warp design's pass (seed over every group box, a dense main grid of
+(query warps × tiles × problems)), kept so that old, new and twin are held
+and timed in one call.  The Morton sort key and
 the payload sort are torch ops, as in pctpu they are XLA ops around the
 kernel.
 
@@ -370,18 +377,30 @@ def _per_target(n_problems: int, n_targets: int) -> int:
     return n_problems // n_targets
 
 
-def _pass_launcher(query, query_mask, prepared, thr2, counter=None):
+def _pass_scratch_words(n_problems: int, nq: int, tiles: int, v1: bool = False) -> int:
+    """The 64-bit words of a pass's scratch: each problem's query warps'
+    boxes (four words each) and one key a query; the new design adds the
+    work list's count and a spare word, and the list itself, room
+    for every (problem, query warp, tile) item — the first design's dense
+    grid."""
+    warps = -(-nq // 32)
+    words = n_problems * (4 * warps + nq)
+    return words if v1 else 2 + words + n_problems * warps * tiles
+
+
+def _pass_launcher(query, query_mask, prepared, thr2, counter=None, v1=False):
     """Validate CUDA queries for a pass of ``csrc/nn_pruned_warp.cu`` and
     allocate its outputs and scratch: ``query`` (Q, 3) on a
     :class:`PreparedTarget`, or (P, Q, 3) on :class:`PreparedTargets`.
-    Returns (launch, idx, d2): each ``launch()`` runs the pass (seed, main and
-    finish) into the outputs and counts it once, as ``nn_pruned`` or
-    ``nn_pruned_batched``.  With ``counter`` (an int64 CUDA tensor) the
-    counting instance runs, counted as ``nn_pruned_count``, and adds the
-    pairs it visited."""
+    Returns (launch, idx, d2): each ``launch()`` runs the pass (the list's
+    memset, seed, main and finish) into the outputs and counts it once, as
+    ``nn_pruned`` or ``nn_pruned_batched``.  With ``counter`` (two int64
+    words on the card) the counting instance runs, counted as
+    ``nn_pruned_count``, and adds the pairs it visited and the list's items.
+    ``v1``: the first warp design's pass (seed, dense main grid, finish) on
+    either kind of target, counted as ``nn_pruned_batched_v1``."""
     dev = query.device
-    if dev.type != "cuda":
-        raise ValueError(f"the nn_pruned kernels need CUDA tensors, got {dev}")
+    _cuda.require_card(dev, "the nn_pruned kernels")
     batched = isinstance(prepared, PreparedTargets)
     lead = query.shape[:1] if batched else ()
     if query.dim() != len(lead) + 2:
@@ -400,21 +419,26 @@ def _pass_launcher(query, query_mask, prepared, thr2, counter=None):
     _cuda.require(prepared.tile_box, "prepared.tile_box", torch.float32, (*tl, 8, tiles), dev)
     if not 0 < nq < 2**31 - 256:
         raise ValueError(f"nn_pruned: unsupported size Q={nq}")
+    if counter is not None and v1:
+        raise ValueError("nn_pruned: the first design has no counting instance")
     idx = torch.empty((*lead, nq), dtype=torch.int32, device=dev)
     d2 = torch.empty((*lead, nq), dtype=torch.float32, device=dev)
-    # each problem's query warps' boxes (four words each), then one 64-bit key
-    # a query
-    scratch = torch.empty((n_problems * (4 * -(-nq // 32) + nq),), dtype=torch.int64,
+    scratch = torch.empty((_pass_scratch_words(n_problems, nq, tiles, v1),), dtype=torch.int64,
                           device=dev)
     lib = _cuda.library()
-    name = "nn_pruned_count" if counter is not None else (
-        "nn_pruned_batched" if batched else "nn_pruned")
+    name = ("nn_pruned_batched_v1" if v1 else "nn_pruned_count" if counter is not None
+            else "nn_pruned_batched" if batched else "nn_pruned")
     count_ptr = None if counter is None else counter.data_ptr()
     ptrs = (prepared.packed.data_ptr(), prepared.group_box.data_ptr(),
             prepared.tile_box.data_ptr())
 
     def launch():
-        if batched:
+        if v1:
+            rc = lib.pctpu_nn_pruned_batched_v1(
+                query.data_ptr(), query_mask.data_ptr(), n_problems, nq, *ptrs, n_targets,
+                tiles, thr2, scratch.data_ptr(), idx.data_ptr(), d2.data_ptr(),
+                _cuda.stream_ptr(dev))
+        elif batched:
             rc = lib.pctpu_nn_pruned_batched(
                 query.data_ptr(), query_mask.data_ptr(), n_problems, nq, *ptrs, n_targets,
                 tiles, thr2, scratch.data_ptr(), idx.data_ptr(), d2.data_ptr(), count_ptr,
@@ -493,14 +517,38 @@ def nn_1_pruned_batched(
     return idx, d2
 
 
-def pairs_visited(query, query_mask, prepared, max_distance=None) -> int:
-    """The (query, target) pairs one pass of :func:`nn_1_pruned` (or, on
-    :class:`PreparedTargets`, of :func:`nn_1_pruned_batched`) scans on the
-    card — 1,024 for every (32-query warp, 32-point group) it visits — from
-    the kernels' counting instance (synchronises)."""
-    counter = torch.zeros((1,), dtype=torch.int64, device=query.device)
+def nn_1_pruned_batched_v1(
+    query: torch.Tensor,
+    query_mask: torch.Tensor,
+    prepared: PreparedTargets | PreparedTarget,
+    max_distance: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`nn_1_pruned_batched` (or, on a :class:`PreparedTarget` and
+    (Q, 3) queries, :func:`nn_1_pruned`) by the first warp design's kernels
+    (seed over every group box, a dense main grid of (query warps × tiles ×
+    problems), finish), kept so that the card tests and ``chip_smoke.py``
+    can hold old, new and twin in one call.  CUDA tensors only; counted
+    ``nn_pruned_batched_v1``."""
+    launch, idx, d2 = _pass_launcher(query, query_mask, prepared, _thr2(max_distance), v1=True)
+    launch()
+    return idx, d2
+
+
+def pass_counts(query, query_mask, prepared, max_distance=None) -> tuple[int, int]:
+    """What one pass of :func:`nn_1_pruned` (or, on :class:`PreparedTargets`,
+    of :func:`nn_1_pruned_batched`) does on the card, from the kernels'
+    counting instance (synchronises): (the (query, target) pairs it scans —
+    1,024 for every (32-query warp, 32-point group) it visits — and the
+    items of its work list)."""
+    counter = torch.zeros((2,), dtype=torch.int64, device=query.device)
     _pass_launcher(query, query_mask, prepared, _thr2(max_distance), counter)[0]()
-    return int(counter.item())
+    pairs, items = counter.tolist()
+    return pairs, items
+
+
+def pairs_visited(query, query_mask, prepared, max_distance=None) -> int:
+    """The (query, target) pairs of :func:`pass_counts`."""
+    return pass_counts(query, query_mask, prepared, max_distance)[0]
 
 
 def _check_variant(name: str, tq: int, tt: int, mode: str) -> None:

@@ -213,6 +213,69 @@ def test_nn_pruned_batched(dev, md):
                                                                   tm.repeat(3, 1)))
 
 
+def _problem_batch(args, n_problems, n_targets):
+    """One of K1's edge cases as P problems on Bt targets: problem k keeps
+    the case's queries with every (k + 1)-th further masked (problem 0 as it
+    is), target b the case's target with every (b + 2)-th further masked."""
+    q, qm, t, tm = args
+    rows_q = torch.arange(q.shape[0], device=q.device)
+    rows_t = torch.arange(t.shape[0], device=t.device)
+    qms = [qm if k == 0 else qm & (rows_q % (k + 1) != 0) for k in range(n_problems)]
+    tms = [tm if b == 0 else tm & (rows_t % (b + 2) != 1) for b in range(n_targets)]
+    return (q.expand(n_problems, -1, -1).contiguous(), torch.stack(qms),
+            t.expand(n_targets, -1, -1).contiguous(), torch.stack(tms))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("md", [None, 2.0, 1e-3])
+@pytest.mark.parametrize("n_problems,n_targets", [(1, 1), (2, 2), (16, 16), (32, 16)])
+def test_nn_pruned_batched_new_v1_twin(dev, md, n_problems, n_targets):
+    """The work-list design, the first warp design (``nn_1_pruned_batched_v1``)
+    and the twin, bit for bit, over K1's edge cases as P problems on Bt
+    targets (problem p on target p // (P / Bt)); at P = 1 the single entry
+    too, and the list never holds more than the dense grid's blocks."""
+    for name, args in _warp_cases(dev):
+        q, qm, t, tm = _problem_batch(args, n_problems, n_targets)
+        prep = tk.prepare_targets(t, tm)
+        want = tk.nn_1_pruned_batched_reference(q, qm, t, tm, md)
+        assert _bit_equal(tk.nn_1_pruned_batched(q, qm, prep, md), want), (name, md)
+        assert _bit_equal(tk.nn_1_pruned_batched_v1(q, qm, prep, md), want), (name, md, "v1")
+        if n_problems == 1:
+            one = tk.prepare_target(t[0], tm[0])
+            assert _bit_equal(tk.nn_1_pruned(q[0], qm[0], prepared=one, max_distance=md),
+                              [want[0][0], want[1][0]]), (name, md)
+            assert _bit_equal(tk.nn_1_pruned_batched_v1(q[0], qm[0], one, md),
+                              [want[0][0], want[1][0]]), (name, md, "v1")
+        pairs, items = tk.pass_counts(q, qm, prep, md)
+        tiles = prep.tile_box.shape[-1]
+        assert 0 <= items <= n_problems * -(-q.shape[1] // 32) * tiles, name
+        assert 0 <= pairs <= 1024 * n_problems * -(-q.shape[1] // 32) * (32 * tiles + 1), name
+        torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_problems,n_targets", [(1, 1), (16, 16), (32, 16)])
+def test_nn_pruned_work_list_empty_and_full(dev, n_problems, n_targets):
+    """A pass whose list is empty (every tile beyond thr: queries 1 km away,
+    thr 2 m) and one whose list is full (unsorted clouds, no thr: every
+    query warp's box overlaps every tile's), each bit-equal to the twin and
+    the first design."""
+    rng = np.random.default_rng(31)
+    q, qm, t, tm = _sorted_scene(dev)
+    unsorted = (*_cloud(rng, 3000, dev), *_cloud(rng, 7000, dev))
+    for args, md, full in (((q + 1000.0, qm, t, tm), 2.0, False), (unsorted, None, True)):
+        bq, bqm, bt, btm = _problem_batch(args, n_problems, n_targets)
+        prep = tk.prepare_targets(bt, btm)
+        want = tk.nn_1_pruned_batched_reference(bq, bqm, bt, btm, md)
+        assert _bit_equal(tk.nn_1_pruned_batched(bq, bqm, prep, md), want), full
+        assert _bit_equal(tk.nn_1_pruned_batched_v1(bq, bqm, prep, md), want), full
+        items = tk.pass_counts(bq, bqm, prep, md)[1]
+        dense = n_problems * -(-bq.shape[1] // 32) * prep.tile_box.shape[-1]
+        assert items == (dense if full else 0), (full, items, dense)
+        if not full:
+            assert not torch.isfinite(want[1]).any()
+
+
 def _variant_twin(mode):
     return tk.nn_1_pruned_bf16_reference if mode == "bf16" else tk.nn_1_pruned_reference
 

@@ -440,6 +440,112 @@ def test_entry_points_default_to_cuda(entry):
     assert inspect.signature(getattr(mod, fn)).parameters["device"].default == "cuda"
 
 
+class _RecordingLibrary:
+    """Stand-in for the kernel library: records each entry's arguments and
+    reports success, launching nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("pctpu_"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+def _pass_inputs(n_problems, nq, nt, batched):
+    rng = np.random.default_rng(nq + nt)
+    q = torch.from_numpy(rng.uniform(-5, 5, (n_problems, nq, 3)).astype(np.float32))
+    qm = torch.ones((n_problems, nq), dtype=torch.bool)
+    t = torch.from_numpy(rng.uniform(-5, 5, (1, nt, 3)).astype(np.float32))
+    tm = torch.ones((1, nt), dtype=torch.bool)
+    if batched:
+        return q, qm, tk.prepare_targets_reference(t, tm)
+    return q[0], qm[0], tk.prepare_target_reference(t[0], tm[0])
+
+
+def _stand_in(monkeypatch):
+    """The kernel library replaced by a recorder, and the card checks let
+    through, so that ``_pass_launcher`` runs its host side on the CPU."""
+    from pctpu_torch.ops import _cuda
+
+    lib = _RecordingLibrary()
+    monkeypatch.setattr(_cuda, "library", lambda: lib)
+    monkeypatch.setattr(_cuda, "stream_ptr", lambda dev: 0)
+    monkeypatch.setattr(_cuda, "require_card", lambda dev, what: None)
+    monkeypatch.setattr(_cuda, "launch_counts", dict.fromkeys(_cuda.launch_counts, 0))
+    return lib, _cuda.launch_counts
+
+
+@pytest.mark.parametrize("n_problems,nq,nt", [(1, 1, 1), (1, 1000, 3 * 1024 + 7),
+                                              (16, 4096, 5000), (32, 8192, 8192)])
+@pytest.mark.parametrize("v1", [False, True])
+def test_pass_scratch_holds_the_work_list(monkeypatch, n_problems, nq, nt, v1):
+    """``_pass_launcher`` sizes the pass's scratch from (P, Q, tiles): each
+    problem's warp boxes (4 words a query warp) and keys (a word a query);
+    the new design adds the list's count and a spare word, and room for
+    every (problem, query warp, tile) item — the dense grid's blocks."""
+    _stand_in(monkeypatch)
+    warps, tiles = -(-nq // 32), -(-nt // 1024)
+    want = n_problems * (4 * warps + nq) + (0 if v1 else 2 + n_problems * warps * tiles)
+    assert tk._pass_scratch_words(n_problems, nq, tiles, v1) == want
+    made = []
+    empty = torch.empty
+
+    def recording_empty(*shape, **kw):
+        out = empty(*shape, **kw)
+        made.append((tuple(out.shape), out.dtype))
+        return out
+
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    tk._pass_launcher(*_pass_inputs(n_problems, nq, nt, batched=n_problems > 1),
+                      tk._thr2(1.0), v1=v1)
+    assert made.count(((want,), torch.int64)) == 1, made
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_pass_launcher_entries_and_counts(monkeypatch, batched):
+    """The new pass, the counting instance and the first design's pass call
+    their own C entries, each counted under its own name once a launch; the
+    counting instance gets the counter, the others none."""
+    lib, counts = _stand_in(monkeypatch)
+    q, qm, prep = _pass_inputs(3 if batched else 1, 100, 2100, batched)
+    new_entry = "pctpu_nn_pruned_batched" if batched else "pctpu_nn_pruned"
+    counter = torch.zeros((2,), dtype=torch.int64)
+    for kw, entry, name in (
+            ({}, new_entry, "nn_pruned_batched" if batched else "nn_pruned"),
+            ({"counter": counter}, new_entry, "nn_pruned_count"),
+            ({"v1": True}, "pctpu_nn_pruned_batched_v1", "nn_pruned_batched_v1")):
+        before = dict(counts)
+        launch, idx, d2 = tk._pass_launcher(q, qm, prep, tk._thr2(2.0), **kw)
+        assert not lib.calls and counts == before  # nothing launches before launch()
+        launch()
+        launch()
+        assert [c[0] for c in lib.calls] == [entry, entry]
+        args = lib.calls[0][1]
+        assert args[0] == q.data_ptr() and args[-1] == 0  # queries first, the stream last
+        assert idx.data_ptr() in args and d2.data_ptr() in args
+        assert args[args.index(d2.data_ptr()) + 1:-1] == (
+            () if kw.get("v1") else (counter.data_ptr() if kw.get("counter") is not None
+                                     else None,))
+        assert {k: counts[k] - before[k] for k in counts if counts[k] != before[k]} == {name: 2}
+        lib.calls.clear()
+    with pytest.raises(ValueError, match="no counting instance"):
+        tk._pass_launcher(q, qm, prep, tk._thr2(2.0), counter=counter, v1=True)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_nn_1_pruned_batched_v1_needs_cuda(batched):
+    """The first design's pass has no CPU mode: CPU tensors raise, and
+    nothing is counted."""
+    from pctpu_torch.ops import _cuda
+
+    before = dict(_cuda.launch_counts)
+    with pytest.raises(ValueError, match="need CUDA tensors"):
+        tk.nn_1_pruned_batched_v1(*_pass_inputs(2 if batched else 1, 64, 1500, batched))
+    assert _cuda.launch_counts == before
+
+
 @pytest.mark.parametrize("nn_impl", ["pruned", "xla"])
 def test_icp_pruned_nan_normal_not_poisoning(nn_impl):
     """(tests/test_pallas_knn.py:133) A NaN normal on an excluded target

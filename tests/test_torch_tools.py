@@ -276,6 +276,7 @@ def test_registration_floor_chain_bit_equal_to_register_pairs(one_thread, capsys
     assert (out["bucket_coarse"], out["bucket_fine"]) == (1024, 4096)
     assert np.isfinite(out["checksum"]) and out["ms_per_pair_wall"] > 0
     assert out["ms_per_pair_device_serial"] is None  # no card: no device time
+    assert out["device_ms_per_pair_by_kernel"] is None
     assert registration_floor.main(["1", "--pairs=2", "--small", "--device=cpu"]) == 0
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["register_pairs_bit_equal"] is True
