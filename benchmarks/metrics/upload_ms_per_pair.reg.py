@@ -1,0 +1,26 @@
+"""Cloud upload: host milliseconds in ``cloud.upload`` (``cloud.from_numpy``, on any
+thread: the pipelined driver's worker, the whole window's loader thread) a pair whose
+results reached the host.
+
+Read from the program's own spans (``pctpu_torch.runtime.profiler``, every
+thread, ``time.time_ns()``: the clock of the profiler's host events), each
+clipped to the traced window; None without the tracer, without items or
+without such a span in the window."""
+
+NAME = "cloud.upload"
+
+
+def read(trace, cell):
+    if not trace.items:
+        return None
+    try:
+        from pctpu_torch.runtime.profiler import records
+    except ImportError:  # a program without the tracer
+        return None
+    lo, hi = trace.window
+    inside = [min(s.end_ns / 1e3, hi) - max(s.start_ns / 1e3, lo)
+              for s in records()[0] if s.name == NAME]
+    inside = [d for d in inside if d > 0]
+    if not inside:
+        return None
+    return sum(inside) / 1e3 / trace.items

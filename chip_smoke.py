@@ -1602,6 +1602,7 @@ def pair_batched_phase(dev: torch.device, smi: str, capacity: int = 65536) -> tu
     from pctpu_torch.experiments.scene import TREE_PAIRS_20, TREE_POSES, registration_tree
     from pctpu_torch.ops import _cuda, cuda_knn, icp
     from pctpu_torch.pipelines import registration
+    from pctpu_torch.runtime import profiler
 
     tree = os.path.join(ROOT, "build", "chip_smoke_batched")
     shutil.rmtree(tree, ignore_errors=True)
@@ -1696,9 +1697,9 @@ def pair_batched_phase(dev: torch.device, smi: str, capacity: int = 65536) -> tu
         counted = {}
         for kind in ("top", "whole"):
             for batch in (16, 1):
-                icp.loop_counts.update(iterations=0, problem_iterations=0)
                 with warnings.catch_warnings(record=True) as caught, profile(
-                        activities=[ProfilerActivity.CUDA]) as prof:
+                        activities=[ProfilerActivity.CUDA]) as prof, \
+                        profiler.recording() as rec:
                     warnings.simplefilter("always")
                     torch.cuda.set_sync_debug_mode(1)
                     try:
@@ -1716,7 +1717,8 @@ def pair_batched_phase(dev: torch.device, smi: str, capacity: int = 65536) -> tu
                     "syncs": sum(sites.values()), "kernels": len(events), "sites": sites,
                     "loop_syncs": sum(v for k, v in sites.items()
                                       if k.startswith(os.path.join("pctpu_torch", "ops", "icp.py"))),
-                    **icp.loop_counts}
+                    "iterations": rec.total("icp.iterations"),
+                    "problem_iterations": rec.total("icp.problem_iterations")}
     finally:
         registration.BucketSpec = real["spec"]
         registration.register_whole_pairs = real["whole"]

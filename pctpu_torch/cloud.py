@@ -14,6 +14,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from pctpu_torch.runtime import profiler
+
 # label conventions of the reference: not yet segmented
 # (KittiPointCloudSelect.cpp:237) and ground (BatchMultiBevGen.cpp:245)
 LABEL_UNSEGMENTED = -2
@@ -161,17 +163,19 @@ def to_numpy(cloud: Cloud) -> dict[str, np.ndarray]:
 def from_numpy(d: dict, device: torch.device | str = "cuda") -> Cloud:
     """Build a Cloud on ``device`` (the card unless asked otherwise) from the
     dict that ``pctpu.cloud.to_numpy`` returns (full capacity, padding
-    included) — how tests feed pctpu and the port identical inputs."""
+    included) — how tests feed pctpu and the port identical inputs.  Traced
+    as ``cloud.upload``, on whichever thread calls it."""
 
     def _t(a, dtype):
         return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
 
-    return Cloud(
-        xyz=_t(np.asarray(d["xyz"], np.float32), torch.float32),
-        intensity=_t(np.asarray(d["intensity"], np.float32), torch.float32),
-        row=_t(np.asarray(d["row"], np.int32), torch.int32),
-        col=_t(np.asarray(d["col"], np.int32), torch.int32),
-        t=_t(np.asarray(d["t"]).astype(np.int64), torch.int64),
-        label=_t(np.asarray(d["label"], np.int32), torch.int32),
-        count=int(d["count"]),
-    )
+    with profiler.span("cloud.upload"):
+        return Cloud(
+            xyz=_t(np.asarray(d["xyz"], np.float32), torch.float32),
+            intensity=_t(np.asarray(d["intensity"], np.float32), torch.float32),
+            row=_t(np.asarray(d["row"], np.int32), torch.int32),
+            col=_t(np.asarray(d["col"], np.int32), torch.int32),
+            t=_t(np.asarray(d["t"]).astype(np.int64), torch.int64),
+            label=_t(np.asarray(d["label"], np.int32), torch.int32),
+            count=int(d["count"]),
+        )

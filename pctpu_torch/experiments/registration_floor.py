@@ -36,7 +36,8 @@ estimate, which takes the profiler to lengthen the host's work and not the
 card's — unchecked), ``device_ms_per_pair_by_kernel`` (that busy time a pair
 split by kernel, copy and memset name, largest first: the floor's shares),
 kernels and hand-kernel launches a pair by name, host syncs a pair by the
-line that made them, ICP batch iterations, the card's name and power
+line that made them, ICP batch and problem iterations (the timed batches
+once more, untimed, under ``profiler.recording()``), the card's name and power
 limit, and ``register_pairs_bit_equal``: the first timed batch's fine
 transforms against ``register_pairs`` on the same pairs, bit for bit.  On
 the CPU (``--device=cpu``; ``--small`` keeps every 15th point of the scene
@@ -132,8 +133,9 @@ def run(argv: list[str] | None = None, dev: torch.device | None = None) -> dict:
     device); returns the JSON line's dict."""
     from pctpu_torch.config import RegistrationConfig
     from pctpu_torch.experiments import card
-    from pctpu_torch.ops import _cuda, icp
+    from pctpu_torch.ops import _cuda
     from pctpu_torch.pipelines import registration as R
+    from pctpu_torch.runtime import profiler
     from pctpu_torch.runtime.profiler import StageTimer
 
     args = parser().parse_args(argv)
@@ -178,7 +180,6 @@ def run(argv: list[str] | None = None, dev: torch.device | None = None) -> dict:
     warm_s = time.perf_counter() - t0
 
     _cuda.reset_launch_counts()
-    icp.loop_counts.update(iterations=0, problem_iterations=0)
     sync()
     t1 = time.perf_counter()
     first, acc = batches(7e-3)
@@ -186,7 +187,10 @@ def run(argv: list[str] | None = None, dev: torch.device | None = None) -> dict:
     sync()
     wall_ms = (time.perf_counter() - t1) * 1e3
     hand = {k: v for k, v in _cuda.launch_counts.items() if v}
-    iterations = dict(icp.loop_counts)
+    # the ICP loops' counters (batch and problem iterations) of the same
+    # pass, run again untimed: tracing stays off while the wall is timed
+    with profiler.recording() as rec:
+        batches(7e-3)
     n = n_steps * n_pairs
 
     # the first timed batch against register_pairs on the same pairs
@@ -209,8 +213,8 @@ def run(argv: list[str] | None = None, dev: torch.device | None = None) -> dict:
         "device_ms_per_pair_by_kernel": None,
         "hand_launches_per_pair": {k: v / n for k, v in hand.items()},
         "host_syncs_per_pair": None, "sync_sites_per_pair": None,
-        "icp_batch_iterations_per_batch": iterations["iterations"] / n_steps,
-        "icp_problem_iterations_per_pair": iterations["problem_iterations"] / n,
+        "icp_batch_iterations_per_batch": rec.total("icp.iterations") / n_steps,
+        "icp_problem_iterations_per_pair": rec.total("icp.problem_iterations") / n,
         "register_pairs_bit_equal": bit_equal,
         "max_abs_err_vs_register_pairs": float(np.abs(got - want).max()),
         "points": int(pairs[0][0].count), "device": card.device_record(dev),

@@ -60,14 +60,9 @@ from pctpu_torch.ops.cuda_knn import (
 )
 from pctpu_torch.ops.knn import nn_1
 from pctpu_torch.ops.transform import transform_xyz
+from pctpu_torch.runtime import profiler
 
 _F32_MAX = float(np.finfo(np.float32).max)
-
-# what the loops ran since the last reset, for the card's measurements:
-# batch iterations (one host read of ``done`` each) and problem iterations
-# (the problems still active in them)
-loop_counts: dict[str, int] = {"iterations": 0, "problem_iterations": 0}
-
 
 @dataclasses.dataclass(frozen=True)
 class IcpResult:
@@ -260,6 +255,7 @@ def _run(src_xyz, src_mask, tgt_xyz, tgt_mask, guess, cfg: IcpConfig, tgt_normal
     it = torch.zeros((n_problems,), dtype=torch.int32, device=dev)
     steps = []
     active = n_problems
+    iterations = problem_iterations = 0
 
     # PCL's loop is a do-while: even max_iterations=0 runs one pass
     min_one = max(cfg.max_iterations, 1)
@@ -315,12 +311,19 @@ def _run(src_xyz, src_mask, tgt_xyz, tgt_mask, guess, cfg: IcpConfig, tgt_normal
         if trace:
             steps.append((final_t, prev_mse, done, conv, it))
             continue
-        loop_counts["iterations"] += 1
-        loop_counts["problem_iterations"] += active
+        iterations += 1
+        problem_iterations += active
         # the batch's one host read an iteration
-        active = n_problems - int(done.sum())
+        with profiler.span("icp.wait"):
+            active = n_problems - int(done.sum())
         if not active:
             break
+    if not trace:
+        # batch iterations (one host read of ``done`` each), the problems
+        # still active in them, and the slots the batch held for them
+        profiler.count("icp.iterations", iterations)
+        profiler.count("icp.problem_iterations", problem_iterations)
+        profiler.count("icp.problem_slots", iterations * n_problems)
 
     # fitness: mean squared NN distance over all source points, against the
     # plain target mask
@@ -358,9 +361,12 @@ def icp_batched(
     (and, for point-to-plane, normals and their masks) (Bt, T), P a
     multiple of Bt; problem p aligns to target p // (P / Bt).  Returns an
     :class:`IcpResult` of (P,) fields, each problem's what :func:`icp` gives
-    it alone."""
-    return _run(src_xyz, src_mask, tgt_xyz, tgt_mask, guess, cfg, tgt_normals, normal_mask,
-                nn_tile, nn_impl, trace=False, mesh=mesh)[0]
+    it alone.  Traced, the call is an ``icp.loop`` span, its host reads of
+    ``done`` ``icp.wait`` spans, and it counts ``icp.iterations``,
+    ``icp.problem_iterations`` and ``icp.problem_slots`` (iterations × P)."""
+    with profiler.span("icp.loop"):
+        return _run(src_xyz, src_mask, tgt_xyz, tgt_mask, guess, cfg, tgt_normals, normal_mask,
+                    nn_tile, nn_impl, trace=False, mesh=mesh)[0]
 
 
 def _one(x):

@@ -22,6 +22,7 @@ import torch
 
 from pctpu_torch.cloud import Cloud
 from pctpu_torch.config import SensorParams
+from pctpu_torch.runtime import profiler
 
 
 def _grid_ordered_core(
@@ -76,11 +77,13 @@ def is_grid_ordered(cloud: Cloud, params: SensorParams) -> bool:
 
 def arrays_grid_ordered(arrays: dict, params: SensorParams) -> bool:
     """``is_grid_ordered`` for the loader's SoA dict form (narrow dtypes,
-    see pctpu_torch.runtime.loader.load_xyzirct_arrays)."""
-    return _grid_ordered_core(
-        arrays["xyz"], arrays["intensity"], arrays["row"], arrays["col"],
-        arrays["t"], arrays["label"], int(arrays["count"]), params,
-    )
+    see pctpu_torch.runtime.loader.load_xyzirct_arrays).  Traced as
+    ``ordering.grid_check``."""
+    with profiler.span("ordering.grid_check"):
+        return _grid_ordered_core(
+            arrays["xyz"], arrays["intensity"], arrays["row"], arrays["col"],
+            arrays["t"], arrays["label"], int(arrays["count"]), params,
+        )
 
 
 def compact_last_wins(data: dict, n: int, params: SensorParams) -> tuple[dict, int]:

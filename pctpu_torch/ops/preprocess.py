@@ -22,6 +22,7 @@ from pctpu_torch.ops.bev import (
 )
 from pctpu_torch.ops.ground import mark_ground
 from pctpu_torch.ops.ordering import get_ordered_cloud
+from pctpu_torch.runtime import profiler
 
 
 def order_and_mark_ground(
@@ -60,15 +61,21 @@ def preprocess_batch(
     emit clouds already scattered onto the dense sensor grid
     (reference/KittiPointCloudSelect.cpp:240), so re-running
     ``getOrderedCloud`` is the identity except at slot 0.  The caller must
-    have verified the layout host-side (``ordering.arrays_grid_ordered``)."""
-    labeled = order_and_mark_ground(clouds, params, ground_cfg, assume_ordered, compat)
-    if fused_bev_compatible(multi_cfg, single_cfg):
-        multi_img, single_img = fused_multi_single_bev(
-            labeled, params.height_res, multi_cfg, single_cfg
-        )
-    else:
-        multi_img = multi_bev(labeled, params.height_res, multi_cfg)
-        single_img = single_bev(labeled, single_cfg)
+    have verified the layout host-side (``ordering.arrays_grid_ordered``).
+
+    Traced as ``preprocess.batch`` with the children
+    ``preprocess.order_ground`` and ``preprocess.bev``."""
+    with profiler.span("preprocess.batch"):
+        with profiler.span("preprocess.order_ground"):
+            labeled = order_and_mark_ground(clouds, params, ground_cfg, assume_ordered, compat)
+        with profiler.span("preprocess.bev"):
+            if fused_bev_compatible(multi_cfg, single_cfg):
+                multi_img, single_img = fused_multi_single_bev(
+                    labeled, params.height_res, multi_cfg, single_cfg
+                )
+            else:
+                multi_img = multi_bev(labeled, params.height_res, multi_cfg)
+                single_img = single_bev(labeled, single_cfg)
     return labeled, multi_img, single_img
 
 

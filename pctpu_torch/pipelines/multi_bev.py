@@ -27,6 +27,7 @@ file list.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import os
@@ -51,7 +52,7 @@ from pctpu_torch.ops.preprocess import preprocess_batch
 from pctpu_torch.ops.select import keyframe_labels, select_major_frames
 from pctpu_torch.parallel.distributed import barrier, process_count, process_index, process_shard
 from pctpu_torch.parallel.mesh import Mesh, data_slices, make_mesh, preprocess_shards
-from pctpu_torch.runtime import native_io
+from pctpu_torch.runtime import native_io, profiler
 from pctpu_torch.runtime.loader import (
     batched_prefetch,
     list_pcd_files,
@@ -109,13 +110,15 @@ def _upload(arrays: dict, device: torch.device, rows: slice = slice(None)) -> di
     widths (26 B a slot + 4 B a cloud).  On a card each field is staged in
     a freshly pinned host tensor and copied with ``non_blocking=True``: the
     caching host allocator hands that block out again only once its copy
-    is done."""
+    is done (traced as ``multi_bev.pin``)."""
 
     def put(k: str) -> torch.Tensor:
         a = np.ascontiguousarray(arrays[k][rows], _ON_DISK.get(k, _UP[k])).view(_UP[k])
         x = torch.from_numpy(a)
         if device.type == "cuda":
-            return x.pin_memory().to(device, non_blocking=True)
+            with profiler.span("multi_bev.pin"):
+                x = x.pin_memory()
+            return x.to(device, non_blocking=True)
         return x.to(device)
 
     return {k: put(k) for k in _UP}
@@ -124,31 +127,33 @@ def _upload(arrays: dict, device: torch.device, rows: slice = slice(None)) -> di
 def _to_device(arrays: dict, device: torch.device, rows: slice = slice(None)) -> Cloud:
     """The loader's stacked arrays (on-disk widths, ``count`` (B,)) → a
     batched Cloud of their ``rows`` on ``device``: uploaded narrow
-    (:func:`_upload`), widened there."""
-    up = _upload(arrays, device, rows)
-    return Cloud(
-        xyz=up["xyz"],
-        intensity=up["intensity"],
-        row=up["row"].to(torch.int32) & 0xFFFF,
-        col=up["col"].to(torch.int32) & 0xFFFF,
-        t=up["t"].to(torch.int64) & 0xFFFFFFFF,
-        label=up["label"].to(torch.int32),
-        count=up["count"].to(torch.int64),
-    )
+    (:func:`_upload`), widened there.  Traced as ``multi_bev.to_device``."""
+    with profiler.span("multi_bev.to_device"):
+        up = _upload(arrays, device, rows)
+        return Cloud(
+            xyz=up["xyz"],
+            intensity=up["intensity"],
+            row=up["row"].to(torch.int32) & 0xFFFF,
+            col=up["col"].to(torch.int32) & 0xFFFF,
+            t=up["t"].to(torch.int64) & 0xFFFFFFFF,
+            label=up["label"].to(torch.int32),
+            count=up["count"].to(torch.int64),
+        )
 
 
 def _wire(labeled: Cloud) -> dict:
     """The labeled clouds in the wire's widths, narrowed on their device
     (pctpu/pipelines/multi_bev.py:83-90): row/col to 16 and ``t`` to 32
-    bits, label to int16."""
-    return {
-        "xyz": labeled.xyz,
-        "intensity": labeled.intensity,
-        "row": labeled.row.to(torch.int16),
-        "col": labeled.col.to(torch.int16),
-        "t": labeled.t.to(torch.int32),
-        "label": labeled.label.to(torch.int16),
-    }
+    bits, label to int16.  Traced as ``multi_bev.wire``."""
+    with profiler.span("multi_bev.wire"):
+        return {
+            "xyz": labeled.xyz,
+            "intensity": labeled.intensity,
+            "row": labeled.row.to(torch.int16),
+            "col": labeled.col.to(torch.int16),
+            "t": labeled.t.to(torch.int32),
+            "label": labeled.label.to(torch.int16),
+        }
 
 
 def _to_host(parts: list[dict]) -> dict:
@@ -158,22 +163,27 @@ def _to_host(parts: list[dict]) -> dict:
     shards of a mesh).  Every key gets a new host tensor, pinned on a card,
     that the parts copy into with ``non_blocking=True``; one synchronize a
     device ends the batch.  The arrays keep their tensors alive, so writers
-    may hold a batch's arrays while later batches come back."""
-    devices = {x.device for p in parts for x in p.values()}
-    pin = any(d.type == "cuda" for d in devices)
-    host = {}
-    for k, x in parts[0].items():
-        buf = torch.empty((sum(p[k].shape[0] for p in parts), *x.shape[1:]), dtype=x.dtype,
-                          pin_memory=pin)
-        at = 0
-        for p in parts:
-            buf[at:at + p[k].shape[0]].copy_(p[k], non_blocking=True)
-            at += p[k].shape[0]
-        host[k] = buf.numpy()
-    for d in devices:
-        if d.type == "cuda":
-            torch.cuda.current_stream(d).synchronize()
-    return {k: a.view(_ON_DISK[k]) if k in _ON_DISK else a for k, a in host.items()}
+    may hold a batch's arrays while later batches come back.  Traced as
+    ``multi_bev.to_host``, its pinned allocations ``multi_bev.pin`` and the
+    synchronize ``multi_bev.to_host.wait``."""
+    with profiler.span("multi_bev.to_host"):
+        devices = {x.device for p in parts for x in p.values()}
+        pin = any(d.type == "cuda" for d in devices)
+        host = {}
+        for k, x in parts[0].items():
+            shape = (sum(p[k].shape[0] for p in parts), *x.shape[1:])
+            with profiler.span("multi_bev.pin") if pin else contextlib.nullcontext():
+                buf = torch.empty(shape, dtype=x.dtype, pin_memory=pin)
+            at = 0
+            for p in parts:
+                buf[at:at + p[k].shape[0]].copy_(p[k], non_blocking=True)
+                at += p[k].shape[0]
+            host[k] = buf.numpy()
+        with profiler.span("multi_bev.to_host.wait"):
+            for d in devices:
+                if d.type == "cuda":
+                    torch.cuda.current_stream(d).synchronize()
+        return {k: a.view(_ON_DISK[k]) if k in _ON_DISK else a for k, a in host.items()}
 
 
 def run_multi_bev(

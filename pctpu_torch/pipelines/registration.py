@@ -38,12 +38,22 @@ clouds, a multiple of 8,192 for the full ones), taken from the batch's
 largest counts, as pctpu does: results depend on the padded width through
 f32 reduction shapes (D5), so the port pads the same way, and a batched pair
 whose buckets equal its own sequential ones gets the same report.
+
+Traced (``runtime.profiler``), the stages are ``registration.*`` spans:
+``load`` (a pipelined batch's pair list), ``stack``, ``flat``, ``coarse``,
+``voxel``, ``fine``, ``verify.wait`` (a stage's stats read on the host),
+``worker.wait`` (the caller waiting on the pipelined worker) and
+``fetch.wait`` (results to the host); ``BucketSpec`` counts
+``registration.bucket_hit.<stage>`` and ``registration.bucket_miss.<stage>``.
+A ``StageTimer`` is optional: given one, its stages synchronise the card to
+time it; without one, nothing synchronises for timing.
 """
 
 from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import math
@@ -64,6 +74,7 @@ from pctpu_torch.ops.topflatten import extract_top_and_flatten
 from pctpu_torch.ops.voxel import voxel_downsample
 from pctpu_torch.parallel.distributed import process_count, process_index, process_shard
 from pctpu_torch.parallel.mesh import Mesh, cloud_to, data_slices, device_guard, make_mesh
+from pctpu_torch.runtime import profiler
 from pctpu_torch.runtime.profiler import StageTimer
 from pctpu_torch.utils import logging as log
 
@@ -223,6 +234,12 @@ def _stage_fine(s_xyz, s_mask, t_xyz, t_mask, guesses, cfg: RegistrationConfig,
                        nn_impl="auto" if point_mesh is None else "sharded", mesh=point_mesh)
 
 
+def _timed(timer: StageTimer | None, name: str, items: int = 1):
+    """``timer``'s stage ``name`` (a span that ends with a device
+    synchronize), or nothing without a timer."""
+    return contextlib.nullcontext() if timer is None else timer.stage(name, items)
+
+
 def _stack_pairs(pairs, guess_fn) -> Shard:
     """(cloud_1 batch, cloud_2 batch, each pair's ``guess_fn(yaw)``) of
     (cloud_1, cloud_2, yaw guess) pairs on one device."""
@@ -240,11 +257,12 @@ def _shard_pairs(pairs, mesh: Mesh | None, guess_fn=_guess_pair_np) -> list[Shar
     """A pair batch as shards (module docstring): one on the pairs' device
     without a mesh, else the pair axis split over the mesh's data devices,
     each shard stacked and moved to its device."""
-    if mesh is None:
-        return [_stack_pairs(pairs, guess_fn)]
-    return [tuple(cloud_to(x, dev) if isinstance(x, Cloud) else x.to(dev)
-                  for x in _stack_pairs(pairs[rows], guess_fn))
-            for rows, dev in data_slices(len(pairs), mesh, "len(pairs)")]
+    with profiler.span("registration.stack"):
+        if mesh is None:
+            return [_stack_pairs(pairs, guess_fn)]
+        return [tuple(cloud_to(x, dev) if isinstance(x, Cloud) else x.to(dev)
+                      for x in _stack_pairs(pairs[rows], guess_fn))
+                for rows, dev in data_slices(len(pairs), mesh, "len(pairs)")]
 
 
 def _on_shards(shards: list[Shard], fn, *columns) -> list:
@@ -260,7 +278,8 @@ def _on_shards(shards: list[Shard], fn, *columns) -> list:
 def _batch_max(stats: list[torch.Tensor]) -> list:
     """Each stat's largest value over the shards (one host read a shard):
     the buckets of a sharded batch are those of the whole batch."""
-    return [max(col) for col in zip(*(s.tolist() for s in stats))]
+    with profiler.span("registration.verify.wait"):
+        return [max(col) for col in zip(*(s.tolist() for s in stats))]
 
 
 def _synchronize(shards: list[Shard]) -> None:
@@ -302,7 +321,8 @@ def _transforms(results: list[IcpResult]) -> list[torch.Tensor]:
 
 def _join(results: list[IcpResult]) -> IcpResult:
     """The shards' results as one host numpy IcpResult, in pair order."""
-    parts = [r.numpy() for r in results]
+    with profiler.span("registration.fetch.wait"):
+        parts = [r.numpy() for r in results]
     return IcpResult(*(np.concatenate([getattr(p, f) for p in parts])
                        for f in ("converged", "fitness", "transform")))
 
@@ -327,7 +347,6 @@ def register_pair(
     "coarse" times flat prep + normals + both coarse ICPs, "fine" the
     full-cloud voxel + fine ICP (BatchTopPartRegistration.cpp:471-506); each
     stage ends on the host, so the numbers are measured, not apportioned."""
-    timer = timer or StageTimer()
     shards = _shard_pairs([(cloud_1, cloud_2, angle_guess_deg)], None)
     best = _coarse_stage_batched(shards, cfg, flat_cap, timer)
     return _pair_results(1, shards, best, cfg, timer, point_mesh=point_mesh)[0]
@@ -346,7 +365,6 @@ def register_pairs(
     in input order.  All clouds must share one capacity and device.  With
     ``mesh`` the pair axis is split over its data devices (len(pairs) a
     multiple of them); the results are the unsharded run's."""
-    timer = timer or StageTimer()
     shards = _shard_pairs(pairs, mesh)
     best = _coarse_stage_batched(shards, cfg, flat_cap, timer)
     return _pair_results(len(pairs), shards, best, cfg, timer)
@@ -367,14 +385,14 @@ def _pair_results(n, shards, best, cfg, timer, spec=None, point_mesh=None):
 
 def _fetch_pair_results(n, best, fine, timer):
     """Bring a batch's results (one IcpResult a shard) to the host and
-    split them per pair.  The fetch spans extend the stage totals with
-    items=0, so they do not count the pairs twice in the per-pair
+    split them per pair.  With a timer the fetches extend the stage totals
+    with items=0, so they do not count the pairs twice in the per-pair
     averages."""
     fine_h = None
     if fine is not None:
-        with timer.stage("fine", items=0):
+        with _timed(timer, "fine", items=0):
             fine_h = _join(fine)
-    with timer.stage("coarse", items=0):
+    with _timed(timer, "coarse", items=0):
         best_h = _join(best)
     return [(best_h.select(i), None if fine_h is None else fine_h.select(i)) for i in range(n)]
 
@@ -399,25 +417,34 @@ class BucketSpec:
         self.hits = 0
         self.misses = 0
 
-    def record(self, predicted: int | None, actual: int) -> bool:
-        """True when the speculative result can be kept."""
+    def record(self, predicted: int | None, actual: int, stage: str) -> bool:
+        """True when the speculative result can be kept.  Counts
+        ``registration.bucket_hit.<stage>`` or ``..._miss.<stage>``."""
         if predicted == actual:
             self.hits += 1
+            profiler.count(f"registration.bucket_hit.{stage}")
             return True
         if predicted is not None:
             self.misses += 1
+            profiler.count(f"registration.bucket_miss.{stage}")
         return False
 
 
 def _flat(shards, cfg, flat_cap):
-    return _on_shards(shards, lambda sh: _stage_flat(sh[0], sh[1], flat_cap, cfg.voxel_leaf))
+    """The flat clouds of every shard and their stats (:func:`_flat_stats`),
+    still on the devices."""
+    with profiler.span("registration.flat"):
+        flats = _on_shards(shards, lambda sh: _stage_flat(sh[0], sh[1], flat_cap,
+                                                          cfg.voxel_leaf))
+        return flats, [_flat_stats(*f) for f in flats]
 
 
 def _coarse_runner(shards, flats, cfg):
     """bucket → the coarse winners of every shard at that bucket."""
     def run(bucket):
-        return _on_shards(shards, lambda sh, f: _stage_coarse(
-            f[0][0], f[0][1], f[1][0], f[1][1], sh[2], cfg, bucket), flats)
+        with profiler.span("registration.coarse"):
+            return _on_shards(shards, lambda sh, f: _stage_coarse(
+                f[0][0], f[0][1], f[1][0], f[1][1], sh[2], cfg, bucket), flats)
     return run
 
 
@@ -427,8 +454,9 @@ def _fine_runner(shards, voxels, cfg, point_mesh=None):
         _stage_fine, point_mesh=point_mesh)
 
     def run(fbucket, guesses):
-        return _on_shards(shards, lambda sh, v, g: stage(
-            v[0][0], v[0][1], v[1][0], v[1][1], g, cfg, fbucket), voxels, guesses)
+        with profiler.span("registration.fine"):
+            return _on_shards(shards, lambda sh, v, g: stage(
+                v[0][0], v[0][1], v[1][0], v[1][1], g, cfg, fbucket), voxels, guesses)
     return run
 
 
@@ -437,23 +465,23 @@ def _coarse_stage_batched(shards, cfg, flat_cap, timer, spec=None):
     1st-stage span).  Returns the coarse winners of each shard, still on
     the devices.  With ``spec`` the coarse ICP first runs at the previous
     batch's bucket (:class:`BucketSpec`)."""
-    with timer.stage("coarse", items=sum(sh[0].xyz.shape[0] for sh in shards)):
-        flats = _flat(shards, cfg, flat_cap)
-        stats = [_flat_stats(*f) for f in flats]
+    with _timed(timer, "coarse", items=sum(sh[0].xyz.shape[0] for sh in shards)):
+        flats, stats = _flat(shards, cfg, flat_cap)
         run_coarse = _coarse_runner(shards, flats, cfg)
         predicted = spec.coarse if spec is not None else None
         best = run_coarse(predicted) if predicted is not None else None
         bucket = _coarse_bucket(_batch_max(stats), flat_cap)
         if spec is not None:
             spec.coarse = bucket
-        if spec is None or not spec.record(predicted, bucket):
+        if spec is None or not spec.record(predicted, bucket, "coarse"):
             best = run_coarse(bucket)
     return best
 
 
 def _voxels(shards, cfg):
-    voxels = _on_shards(shards, lambda sh: _stage_voxel_full(sh[0], sh[1], cfg.voxel_leaf))
-    return voxels, [torch.stack([a[2].max(), b[2].max()]) for a, b in voxels]
+    with profiler.span("registration.voxel"):
+        voxels = _on_shards(shards, lambda sh: _stage_voxel_full(sh[0], sh[1], cfg.voxel_leaf))
+        return voxels, [torch.stack([a[2].max(), b[2].max()]) for a, b in voxels]
 
 
 def _fine_dispatch(shards, guesses, cfg, timer, spec=None, point_mesh=None):
@@ -463,7 +491,7 @@ def _fine_dispatch(shards, guesses, cfg, timer, spec=None, point_mesh=None):
     ablation (guesses = the yaw rotations).  ``spec`` runs the fine ICP
     first at the previous batch's fine bucket.  Returns the fine results of
     each shard, on the devices."""
-    with timer.stage("fine", items=sum(int(g.shape[0]) for g in guesses)):
+    with _timed(timer, "fine", items=sum(int(g.shape[0]) for g in guesses)):
         voxels, stats = _voxels(shards, cfg)
         run_fine = _fine_runner(shards, voxels, cfg, point_mesh)
         predicted = spec.fine if spec is not None else None
@@ -471,7 +499,7 @@ def _fine_dispatch(shards, guesses, cfg, timer, spec=None, point_mesh=None):
         fbucket = _fine_bucket_for(max(_batch_max(stats)), shards[0][0].capacity, point_mesh)
         if spec is not None:
             spec.fine = fbucket
-        if spec is None or not spec.record(predicted, fbucket):
+        if spec is None or not spec.record(predicted, fbucket, "fine"):
             fine = run_fine(fbucket, guesses)
     return fine
 
@@ -482,7 +510,9 @@ def _dispatch_batch_speculative(pairs, cfg, flat_cap, timer, spec: BucketSpec, m
     registration.py:444-535).  A mispredicted stage, and every stage after it
     (the fine guesses are the coarse winners), runs again at the verified
     bucket, so results are the plain path's.  Cold starts (no recorded
-    buckets) take the plain path, which fills the spec."""
+    buckets) take the plain path, which fills the spec.  Only with a
+    ``timer`` is the card synchronised at the end and the stages' times
+    added to it."""
     if spec.coarse is None or spec.fine is None or not cfg.use_refinement:
         shards = _shard_pairs(pairs, mesh)
         best = _coarse_stage_batched(shards, cfg, flat_cap, timer, spec=spec)
@@ -493,8 +523,7 @@ def _dispatch_batch_speculative(pairs, cfg, flat_cap, timer, spec: BucketSpec, m
     t0 = time.perf_counter()
     shards = _shard_pairs(pairs, mesh)
     n = len(pairs)
-    flats = _flat(shards, cfg, flat_cap)
-    stats = [_flat_stats(*f) for f in flats]
+    flats, stats = _flat(shards, cfg, flat_cap)
     run_coarse = _coarse_runner(shards, flats, cfg)
     pc = spec.coarse
     best = run_coarse(pc)
@@ -508,21 +537,22 @@ def _dispatch_batch_speculative(pairs, cfg, flat_cap, timer, spec: BucketSpec, m
     # --- verification (the whole chain has run) ------------------------------
     bucket = _coarse_bucket(_batch_max(stats), flat_cap)
     spec.coarse = bucket
-    coarse_ok = spec.record(pc, bucket)
+    coarse_ok = spec.record(pc, bucket, "coarse")
     if not coarse_ok:
         best = run_coarse(bucket)
     t3 = time.perf_counter()
     fbucket = _fine_bucket(max(_batch_max(stats2)), shards[0][0].capacity)
     spec.fine = fbucket
-    fine_ok = spec.record(pf, fbucket)
+    fine_ok = spec.record(pf, fbucket, "fine")
     if not (fine_ok and coarse_ok):
         # a coarse mispredict invalidates the speculative fine too: its
         # guesses were the mispredicted coarse winners
         fine = run_fine(fbucket, _transforms(best))
-    _synchronize(shards)
-    t4 = time.perf_counter()
-    timer.add("coarse", ((t1 - t0) + (t3 - t2)) * 1e3, items=n)
-    timer.add("fine", ((t2 - t1) + (t4 - t3)) * 1e3, items=n)
+    if timer is not None:
+        _synchronize(shards)
+        t4 = time.perf_counter()
+        timer.add("coarse", ((t1 - t0) + (t3 - t2)) * 1e3, items=n)
+        timer.add("fine", ((t2 - t1) + (t4 - t3)) * 1e3, items=n)
     return n, best, fine
 
 
@@ -545,24 +575,36 @@ def register_pairs_pipelined(
     may have their chain done beyond the one being fetched.  ``mesh`` splits
     each batch over its data devices, as in :func:`register_pairs`.
     Per-batch results are ``register_pairs``' at any depth.  Yields one
-    result list per batch, in order."""
+    result list per batch, in order.  Traced, batch k's spans on both
+    threads carry batch index k."""
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
-    timer = timer or StageTimer()
     # one spec across the stream; only the worker thread writes it
     spec = BucketSpec()
 
-    def dispatch_half(loader):
-        return _dispatch_batch_speculative(loader(), cfg, flat_cap, timer, spec, mesh)
+    def dispatch_half(loader, context):
+        with profiler.adopt(context):
+            with profiler.span("registration.load"):
+                pairs = loader()
+            return _dispatch_batch_speculative(pairs, cfg, flat_cap, timer, spec, mesh)
+
+    def fetch(k, fut):
+        with profiler.batch(k):
+            with profiler.span("registration.worker.wait"):
+                done = fut.result()
+            return _fetch_pair_results(*done, timer)
 
     with concurrent.futures.ThreadPoolExecutor(max_workers=1) as ex:
         futs = collections.deque()
-        for loader in batch_loaders:
-            futs.append(ex.submit(dispatch_half, loader))
+        fetched = 0
+        for k, loader in enumerate(batch_loaders):
+            futs.append(ex.submit(dispatch_half, loader, profiler.handoff(k)))
             if len(futs) > depth:
-                yield _fetch_pair_results(*futs.popleft().result(), timer)
+                yield fetch(fetched, futs.popleft())
+                fetched += 1
         while futs:
-            yield _fetch_pair_results(*futs.popleft().result(), timer)
+            yield fetch(fetched, futs.popleft())
+            fetched += 1
 
 
 def register_whole_pairs(
@@ -576,10 +618,9 @@ def register_whole_pairs(
     the pair axis, at the fine bucket of the batch's largest voxel count, as
     pctpu's.  ``mesh`` splits the pair axis over its data devices.  Returns
     the numpy fine IcpResults in input order."""
-    timer = timer or StageTimer()
     shards = _shard_pairs(pairs, mesh, _whole_guess_np)
     fine = _fine_dispatch(shards, [sh[2] for sh in shards], cfg, timer)
-    with timer.stage("fine", items=0):
+    with _timed(timer, "fine", items=0):
         fine_h = _join(fine)
     return [fine_h.select(i) for i in range(len(pairs))]
 
@@ -899,18 +940,24 @@ def run_batch_whole_registration(
             return
         chunks = _chunks(matches, pair_batch)
 
-        def load_chunk(chunk):
-            return _load_pair_chunk(chunk, point_cloud_dir, capacity, pair_batch, device)
+        def load_chunk(chunk, context):
+            with profiler.adopt(context), profiler.span("registration.load"):
+                return _load_pair_chunk(chunk, point_cloud_dir, capacity, pair_batch, device)
+
+        def submit(k):
+            return ex.submit(load_chunk, chunks[k], profiler.handoff(k))
 
         # chunk k+1's PCDs load on a worker thread under chunk k's run
         with concurrent.futures.ThreadPoolExecutor(max_workers=1) as ex:
-            fut = ex.submit(load_chunk, chunks[0]) if chunks else None
+            fut = submit(0) if chunks else None
             for k, chunk in enumerate(chunks):
-                pairs = fut.result()
-                fut = ex.submit(load_chunk, chunks[k + 1]) if k + 1 < len(chunks) else None
-                for m, fine in zip(chunk, register_whole_pairs(pairs, cfg, timer=timer,
-                                                               mesh=mesh)):
-                    yield m, fine
+                with profiler.batch(k):
+                    with profiler.span("registration.worker.wait"):
+                        pairs = fut.result()
+                    fut = submit(k + 1) if k + 1 < len(chunks) else None
+                    fine = register_whole_pairs(pairs, cfg, timer=timer, mesh=mesh)
+                for m, f in zip(chunk, fine):
+                    yield m, f
 
     with open(report_path + ".progress", report_mode) as progress:
         for m, fine in result_stream():

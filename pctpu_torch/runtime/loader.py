@@ -19,6 +19,7 @@ import numpy as np
 from pctpu_torch.config import SensorParams
 from pctpu_torch.io.pcd import read_pcd
 from pctpu_torch.ops.ordering import compact_last_wins
+from pctpu_torch.runtime import profiler
 
 
 def list_pcd_files(path: str) -> list[str]:
@@ -80,6 +81,8 @@ def batched_prefetch(
 
     The last batch is padded by repeating its final item so every batch has
     the same shape; the padded entries carry item=None so writers skip them.
+    Traced: each ``load_fn`` call is a ``loader.load`` span on the producer
+    thread (with its batch index), the consumer's wait a ``loader.wait``.
     """
     batches: list[list] = [
         items[i : i + batch_size] for i in range(0, len(items), batch_size)
@@ -99,13 +102,18 @@ def batched_prefetch(
                 continue
         return False
 
-    def producer():
+    def load(b):
+        with profiler.span("loader.load"):
+            return load_fn(b)
+
+    def producer(context):
         try:
-            for batch in batches:
+            for k, batch in enumerate(batches):
                 if stop.is_set():
                     return
                 names = list(batch) + [None] * (batch_size - len(batch))
-                payload = [load_fn(b) for b in batch]
+                with profiler.adopt(context), profiler.batch(k):
+                    payload = [load(b) for b in batch]
                 payload += [payload[-1]] * (batch_size - len(batch))
                 if not _put((names, payload)):
                     return
@@ -114,11 +122,12 @@ def batched_prefetch(
         finally:
             _put(None)
 
-    thread = threading.Thread(target=producer, daemon=True)
+    thread = threading.Thread(target=producer, args=(profiler.handoff(),), daemon=True)
     thread.start()
     try:
         while True:
-            got = q.get()
+            with profiler.span("loader.wait"):
+                got = q.get()
             if got is None:
                 break
             if isinstance(got, Exception):
@@ -130,6 +139,8 @@ def batched_prefetch(
 
 
 def stack_batch(payloads: list[dict[str, np.ndarray]]) -> dict[str, np.ndarray]:
-    """Stack per-cloud field dicts into batched arrays."""
+    """Stack per-cloud field dicts into batched arrays (traced as
+    ``loader.stack``)."""
     keys = payloads[0].keys()
-    return {k: np.stack([p[k] for p in payloads]) for k in keys}
+    with profiler.span("loader.stack"):
+        return {k: np.stack([p[k] for p in payloads]) for k in keys}

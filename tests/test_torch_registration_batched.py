@@ -26,6 +26,7 @@ from pctpu_torch.config import IcpConfig, RegistrationConfig
 from pctpu_torch.io import pcd as tpcd
 from pctpu_torch.ops import cuda_knn, icp, normals2d, topflatten, voxel
 from pctpu_torch.pipelines import registration as reg
+from pctpu_torch.runtime import profiler
 
 from .test_icp_differential import _plane_scene, scene
 from .test_torch_ops_registration import _scene_cloud
@@ -177,10 +178,11 @@ def test_batched_icp_equals_single_calls(impl):
     src, sm, tgt, tm, guesses = _icp_problems()
     cfg = IcpConfig(max_correspondence_distance=1.0, max_iterations=5,
                     transformation_epsilon=1e-6, euclidean_fitness_epsilon=1e-4)
-    icp.loop_counts.update(iterations=0, problem_iterations=0)
-    got = icp.icp_batched(src, sm, tgt, tm, guesses, cfg, nn_impl=impl)
+    with profiler.recording() as rec:
+        got = icp.icp_batched(src, sm, tgt, tm, guesses, cfg, nn_impl=impl)
     # one host read a batch iteration: the batch ran to max_iterations once
-    assert icp.loop_counts["iterations"] == cfg.max_iterations
+    assert rec.total("icp.iterations") == cfg.max_iterations
+    assert len(rec.named("icp.wait")) == cfg.max_iterations
     its = []
     for p in range(4):
         one = icp.icp(src[p], sm[p], tgt[p // 2], tm[p // 2], guesses[p], cfg, nn_impl=impl)
