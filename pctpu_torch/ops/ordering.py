@@ -11,11 +11,14 @@ deterministic on CUDA too — followed by one gather of every field bit-cast
 to int32, so -0.0 and NaN payloads come through unchanged.  Clouds may carry
 a leading batch axis (one launch per op for the whole batch).
 
-The host checks (``is_grid_ordered``, ``arrays_grid_ordered``,
-``compact_last_wins``) are pctpu's numpy code, copied.
+The host checks give pctpu's answers: ``compact_last_wins`` is pctpu's numpy
+code, copied; ``is_grid_ordered`` and ``arrays_grid_ordered`` compute
+pctpu's predicate with less work (see ``_grid_ordered_core``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -25,37 +28,66 @@ from pctpu_torch.config import SensorParams
 from pctpu_torch.runtime import profiler
 
 
+@functools.lru_cache(maxsize=16)
+def _slot_row_col(n_scan: int, horizon_scan: int, dtype: np.dtype) -> tuple[np.ndarray, np.ndarray]:
+    """Each slot's own row (``i // H``) and col (``i % H``), read-only, in
+    ``dtype`` where it holds them all (so comparing copies no input), else
+    int64."""
+    if np.iinfo(dtype).max < max(n_scan, horizon_scan) - 1:
+        dtype = np.dtype(np.int64)
+    row = np.repeat(np.arange(n_scan, dtype=dtype), horizon_scan)
+    col = np.tile(np.arange(horizon_scan, dtype=dtype), n_scan)
+    row.flags.writeable = col.flags.writeable = False
+    return row, col
+
+
+def _f32_bits(a: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(a, np.float32).view(np.uint32)
+
+
+def _bit_zero_at(slots: np.ndarray, xyz, intensity, row, col, t, label) -> bool:
+    """Every field of every slot in ``slots`` is (bit-)zero."""
+    return not (
+        row.take(slots).any() or col.take(slots).any()
+        or np.asarray(label).take(slots).any() or np.asarray(t).take(slots).any()
+        or _f32_bits(np.asarray(intensity).take(slots)).any()
+        or _f32_bits(np.asarray(xyz).take(slots, axis=0)).any()
+    )
+
+
 def _grid_ordered_core(
     xyz: np.ndarray, intensity: np.ndarray, row: np.ndarray, col: np.ndarray,
     t: np.ndarray, label: np.ndarray, count: int, params: SensorParams,
 ) -> bool:
-    """Shared predicate behind is_grid_ordered / arrays_grid_ordered.
+    """Shared predicate behind is_grid_ordered / arrays_grid_ordered:
+    pctpu's, slot for slot.  Slot ``i`` is in place when ``row == i // H``
+    and ``col == i % H`` (pctpu's bounds test and ``row*H + col == i``), or
+    else must be *empty*: every field zero, the float fields **bit**-zero
+    (+0.0).  A -0.0 coordinate is a real point the reference's last-wins
+    scatter would store byte-for-byte (0x80000000), so such clouds must
+    take the general ordering path to keep bit parity.
 
-    A slot counts as *empty* only when its float fields are **bit**-zero
-    (+0.0): a -0.0 coordinate is a real point the reference's last-wins
-    scatter would store byte-for-byte (0x80000000), so such clouds must take
-    the general ordering path to keep bit parity.
-    """
-    g = params.grid_size
+    The first row of slots is tested first: a raw or otherwise unordered
+    cloud fails there (counted ``ordering.grid_check.early``).  Otherwise
+    every slot is compared with its cached row and col, and the empty rule
+    is tested only where a slot is out of place
+    (``ordering.grid_check.full``)."""
+    g, h = params.grid_size, params.horizon_scan
     if xyz.shape[0] != g or count != g:
         return False
-    row = np.asarray(row, np.int64)
-    col = np.asarray(col, np.int64)
-    xyz_bits = np.ascontiguousarray(np.asarray(xyz, np.float32)).view(np.uint32)
-    inten_bits = np.ascontiguousarray(
-        np.asarray(intensity, np.float32)
-    ).view(np.uint32)
-    is_zero = (
-        (row == 0) & (col == 0) & (np.asarray(label) == 0)
-        & (np.asarray(t) == 0)
-        & (inten_bits == 0) & (xyz_bits == 0).all(axis=1)
-    )
-    in_place = (
-        (row >= 0) & (row < params.n_scan)
-        & (col >= 0) & (col < params.horizon_scan)
-        & (row * params.horizon_scan + col == np.arange(g))
-    )
-    return bool(np.all(is_zero | in_place))
+    # pctpu reads row and col as int64
+    row, col = (a if a.dtype.kind in "iu" else a.astype(np.int64)
+                for a in (np.asarray(row), np.asarray(col)))
+    slot_row = _slot_row_col(params.n_scan, h, row.dtype)[0]
+    slot_col = _slot_row_col(params.n_scan, h, col.dtype)[1]
+    fields = (xyz, intensity, row, col, t, label)
+    moved = np.flatnonzero((row[:h] != slot_row[:h]) | (col[:h] != slot_col[:h]))
+    if moved.size and not _bit_zero_at(moved, *fields):
+        profiler.count("ordering.grid_check.early")
+        return False
+    profiler.count("ordering.grid_check.full")
+    moved = np.flatnonzero((row != slot_row) | (col != slot_col))
+    return _bit_zero_at(moved, *fields)
 
 
 def is_grid_ordered(cloud: Cloud, params: SensorParams) -> bool:

@@ -25,6 +25,7 @@ from pctpu_torch import from_numpy
 from pctpu_torch.config import GroundConfig, SensorParams, get_sensor_params
 from pctpu_torch.io.csvfmt import format_csv_bytes
 from pctpu_torch.ops import bev, ground, ordering, preprocess, rounding
+from pctpu_torch.runtime import profiler
 
 from . import ref_impl
 from .test_ops_preprocess import SMALL as JSMALL
@@ -142,6 +143,100 @@ def test_grid_ordered_checks_and_fast_path():
     assert jordering.arrays_grid_ordered(arrays, JSMALL) is False
     neg = ordering.get_ordered_cloud(port(jcloud.make_cloud(xyz2)), SMALL)
     assert np.signbit(neg.xyz[0, 0].numpy())
+
+
+def _dense_arrays(seed=11):
+    """A dense grid-ordered cloud in the loader's dict form: empty slots
+    all-zero, every other slot's point in place."""
+    d = jcloud.to_numpy(jordering.get_ordered_cloud(
+        to_cloud(random_points(np.random.default_rng(seed), 400, JSMALL)), JSMALL))
+    return {k: np.array(v) for k, v in d.items()}
+
+
+def _grid_case(name):
+    """(the case's cloud in the dict form, pctpu's answer on it)."""
+    g, h = SMALL.grid_size, SMALL.horizon_scan
+    d = _dense_arrays()
+    empty = np.flatnonzero(~d["xyz"].view(np.uint32).any(axis=1))
+    real = np.flatnonzero(d["xyz"].view(np.uint32).any(axis=1))
+    if name == "raw":
+        rng = np.random.default_rng(5)
+        d = jcloud.to_numpy(to_cloud(random_points(rng, g, JSMALL)))
+        d = {k: np.array(v) for k, v in d.items()}
+        d["row"][0], d["col"][0] = 0, 0  # slot 0 in place; slot 1 decides
+    elif name == "dense":
+        pass
+    elif name == "all_empty":
+        d = {k: np.zeros_like(v) for k, v in d.items()}
+        d["count"] = g
+    elif name == "negzero_last_slot":
+        last = g - 1
+        for k in ("xyz", "intensity", "row", "col", "t", "label"):
+            d[k][last] = 0
+        d["xyz"][last, 2] = -0.0
+    elif name == "moved_in_last_row":
+        s = real[real >= g - h][0]
+        d["col"][s] = (d["col"][s] + 1) % h
+    elif name == "nan_payload_intensity":
+        s = empty[len(empty) // 2]
+        assert s >= h
+        d["intensity"][s] = np.array([0x7FC01234], np.uint32).view(np.float32)[0]
+    elif name == "empty_first_row_moved_later":
+        for k in ("xyz", "intensity", "row", "col", "t", "label"):
+            d[k][:h] = 0
+        d["row"][h:] = (d["row"][h:] + 1) % SMALL.n_scan
+    elif name == "negative_row_later":
+        d["row"][real[-1]] = -1
+    elif name == "negative_row_first":
+        d["row"][real[real < h][0]] = -1
+    elif name == "count_short":
+        d["count"] = g - 1
+    elif name == "xyz_longer":
+        d = {k: (np.concatenate([v, np.zeros_like(v[:3])]) if k != "count" else g)
+             for k, v in d.items()}
+    want = jordering.arrays_grid_ordered(d, JSMALL)
+    return d, want
+
+
+GRID_CASES = {  # name: (pctpu's answer, where the port decides)
+    "raw": (False, "early"), "dense": (True, "full"), "all_empty": (True, "full"),
+    "negzero_last_slot": (False, "full"), "moved_in_last_row": (False, "full"),
+    "nan_payload_intensity": (False, "full"), "empty_first_row_moved_later": (False, "full"),
+    "negative_row_later": (False, "full"), "negative_row_first": (False, "early"),
+    "count_short": (False, None), "xyz_longer": (False, None),
+}
+
+
+@pytest.mark.parametrize("name,form", [
+    (name, form) for name in GRID_CASES for form in ("dict-uint16", "dict-int32", "cloud")
+    # uint16 holds no negative row
+    if not (form == "dict-uint16" and name.startswith("negative_row"))
+])
+def test_grid_ordered_equals_pctpu(name, form):
+    """arrays_grid_ordered and is_grid_ordered give pctpu's bool on every
+    case, and decide where the case says: the first row of slots, every
+    slot, or neither (the shape and count guards)."""
+    d, want = _grid_case(name)
+    assert want is GRID_CASES[name][0]
+    if form.startswith("dict"):
+        dt = np.uint16 if form == "dict-uint16" else np.int32
+        arrays = {**d, "row": d["row"].astype(dt), "col": d["col"].astype(dt),
+                  "label": d["label"].astype(np.int16)}
+        assert jordering.arrays_grid_ordered(arrays, JSMALL) is want
+        with profiler.recording() as rec:
+            got = ordering.arrays_grid_ordered(arrays, SMALL)
+        assert len(rec.named("ordering.grid_check")) == 1
+    else:
+        jc = jcloud.make_cloud(d["xyz"], intensity=d["intensity"], row=d["row"], col=d["col"],
+                               t=d["t"], label=d["label"], count=d["count"])
+        assert jordering.is_grid_ordered(jc, JSMALL) is want
+        cloud = from_numpy(d, device="cpu")
+        assert cloud.row.dtype == torch.int32
+        with profiler.recording() as rec:
+            got = ordering.is_grid_ordered(cloud, SMALL)
+    assert got is want
+    route = GRID_CASES[name][1]
+    assert rec.totals() == ({} if route is None else {f"ordering.grid_check.{route}": 1})
 
 
 @pytest.mark.parametrize("compat", ["bitexact", "tolerance"])

@@ -10,12 +10,15 @@ import os
 import threading
 import time
 
+import numpy as np
 import pytest
 import torch
 import torch.autograd.profiler as torch_profiler
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from pctpu_torch import cloud as tcloud
+from pctpu_torch.config import SensorParams
+from pctpu_torch.ops import ordering
 from pctpu_torch.pipelines import registration as reg
 from pctpu_torch.runtime import profiler
 from pctpu_torch.runtime.profiler import StageTimer
@@ -234,6 +237,35 @@ def test_stage_timer_stage_is_a_span():
     (s,) = rec.named("work")
     assert timer.counts["work"] == 2
     assert timer.totals_ms["work"] >= (s.end_ns - s.start_ns) / 1e6
+
+
+def test_grid_check_counts_where_it_decides():
+    """The BEV loader's grid-order check records one counter event a check:
+    ``ordering.grid_check.early`` where the first row of slots decides (a raw
+    column-major cloud), ``.full`` where it sees every slot (a dense
+    grid-ordered one); none with tracing off."""
+    params = SensorParams(n_scan=4, horizon_scan=8, ground_upper_scan=2, height_res=0.5)
+    g = params.grid_size
+    slot = np.arange(g)
+
+    def cloud(row, col):
+        return {"xyz": np.ones((g, 3), np.float32), "intensity": np.ones(g, np.float32),
+                "row": row.astype(np.uint16), "col": col.astype(np.uint16),
+                "t": np.zeros(g, np.uint32), "label": np.zeros(g, np.int16), "count": g}
+
+    raw = cloud(slot % params.n_scan, slot // params.n_scan)
+    dense = cloud(slot // params.horizon_scan, slot % params.horizon_scan)
+    with profiler.recording() as rec:
+        assert not ordering.arrays_grid_ordered(raw, params)
+    assert rec.totals() == {"ordering.grid_check.early": 1}
+    with profiler.recording() as rec:
+        assert ordering.arrays_grid_ordered(dense, params)
+    assert rec.totals() == {"ordering.grid_check.full": 1}
+    assert len(rec.named("ordering.grid_check")) == 1
+    before = tuple(len(x) for x in profiler.records())
+    assert not ordering.arrays_grid_ordered(raw, params)
+    assert ordering.arrays_grid_ordered(dense, params)
+    assert tuple(len(x) for x in profiler.records()) == before
 
 
 def test_profile_trace_holds_worker_spans_rebased(tmp_path):
