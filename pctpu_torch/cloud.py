@@ -35,6 +35,11 @@ class Cloud:
       label:     (N,)   int32 segmentation label.
       count:     number of real points (leading slots); a (B,) tensor
                  when the fields carry a leading batch axis.
+      ordering_counts: (B, 2) int64 on the device, or None: the in-bounds
+                 points of each input cloud (B = 1 without a batch axis) and
+                 those that lost their slot to a later point, set by
+                 ``ops.ordering.get_ordered_cloud`` while tracing
+                 (``multi_bev._to_host`` records them).
     """
 
     xyz: torch.Tensor
@@ -44,6 +49,7 @@ class Cloud:
     t: torch.Tensor
     label: torch.Tensor
     count: int | torch.Tensor
+    ordering_counts: torch.Tensor | None = None
 
     @property
     def capacity(self) -> int:

@@ -713,7 +713,8 @@ def _one(cloud):
     """The first cloud of a batched Cloud."""
     from pctpu_torch.cloud import Cloud
 
-    return Cloud(**{f.name: getattr(cloud, f.name)[0] for f in dataclasses.fields(Cloud)})
+    return Cloud(**{f.name: None if (v := getattr(cloud, f.name)) is None else v[0]
+                    for f in dataclasses.fields(Cloud)})
 
 
 def verify(device="cuda", sizes: Sizes = FULL) -> str:

@@ -144,7 +144,10 @@ def get_ordered_cloud(cloud: Cloud, params: SensorParams) -> Cloud:
     """Order a padded cloud (or a batch of them) into the dense sensor grid.
 
     Returns a Cloud of capacity ``params.grid_size`` whose slot ``r*H + c``
-    holds the last input point with (row, col) == (r, c), or zeros.
+    holds the last input point with (row, col) == (r, c), or zeros.  While
+    tracing (``profiler.enabled()``) its ``ordering_counts`` (B, 2) hold
+    each cloud's in-bounds points and the points that lost their slot to a
+    later one, on the device: no synchronize, no host pass.
     """
     batched = cloud.xyz.dim() == 3
     g = params.grid_size
@@ -165,6 +168,12 @@ def get_ordered_cloud(cloud: Cloud, params: SensorParams) -> Cloud:
     winner = winner.scatter_reduce(1, cell, point_idx, "amax", include_self=True)[:, :g]
     occupied = winner >= 0
     src = torch.where(occupied, winner, 0)
+    counts = None
+    if profiler.enabled():
+        # a cloud's in-bounds points and those a later point overwrote, left
+        # on the device: they come home with the batch (multi_bev._to_host)
+        points = in_bounds.sum(-1)
+        counts = torch.stack([points, points - occupied.sum(-1)], -1)
 
     # one packed row gather of every field's bits instead of one per field
     packed = torch.cat(
@@ -190,4 +199,5 @@ def get_ordered_cloud(cloud: Cloud, params: SensorParams) -> Cloud:
         t=taken[..., 6].to(torch.int64) & 0xFFFFFFFF,
         label=taken[..., 7],
         count=torch.full((b,), g, dtype=torch.int64, device=dev) if batched else g,
+        ordering_counts=counts,
     )

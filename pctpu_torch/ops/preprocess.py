@@ -39,7 +39,8 @@ def order_and_mark_ground(
     if assume_ordered:
         ordered = _reorder_preordered(clouds, params)
     else:
-        ordered = get_ordered_cloud(clouds, params)
+        with profiler.span("ordering.scatter"):
+            ordered = get_ordered_cloud(clouds, params)
     labeled, _ = mark_ground(ordered, params, ground_cfg, compat=compat)
     return labeled
 
@@ -64,7 +65,8 @@ def preprocess_batch(
     have verified the layout host-side (``ordering.arrays_grid_ordered``).
 
     Traced as ``preprocess.batch`` with the children
-    ``preprocess.order_ground`` and ``preprocess.bev``."""
+    ``preprocess.order_ground`` (the general ordering's launches inside it as
+    ``ordering.scatter``) and ``preprocess.bev``."""
     with profiler.span("preprocess.batch"):
         with profiler.span("preprocess.order_ground"):
             labeled = order_and_mark_ground(clouds, params, ground_cfg, assume_ordered, compat)

@@ -93,7 +93,9 @@ def device_guard(device: torch.device):
 
 
 def _cloud_fields(cloud: Cloud, fn) -> Cloud:
-    return Cloud(**{f.name: fn(getattr(cloud, f.name)) for f in dataclasses.fields(Cloud)})
+    """``fn`` of every field that is set (``ordering_counts`` may be None)."""
+    return Cloud(**{f.name: None if (v := getattr(cloud, f.name)) is None else fn(v)
+                    for f in dataclasses.fields(Cloud)})
 
 
 def cloud_to(cloud: Cloud, device: torch.device) -> Cloud:
@@ -135,8 +137,9 @@ def sharded_preprocess(mesh: Mesh, params, ground_cfg=GroundConfig(),
     def run(shards: list[Cloud], assume_ordered: bool = False, compat: str = "bitexact"):
         outs = preprocess_shards(shards, params, ground_cfg, multi_cfg, single_cfg,
                                  assume_ordered, compat)
-        labeled = Cloud(**{f.name: torch.cat([getattr(o[0], f.name).to(dev0) for o in outs])
-                           for f in dataclasses.fields(Cloud)})
+        parts = {f.name: [getattr(o[0], f.name) for o in outs] for f in dataclasses.fields(Cloud)}
+        labeled = Cloud(**{k: None if any(x is None for x in v) else
+                           torch.cat([x.to(dev0) for x in v]) for k, v in parts.items()})
         return (labeled, torch.cat([o[1].to(dev0) for o in outs]),
                 torch.cat([o[2].to(dev0) for o in outs]))
 

@@ -110,7 +110,9 @@ def _upload(arrays: dict, device: torch.device, rows: slice = slice(None)) -> di
     widths (26 B a slot + 4 B a cloud).  On a card each field is staged in
     a freshly pinned host tensor and copied with ``non_blocking=True``: the
     caching host allocator hands that block out again only once its copy
-    is done (traced as ``multi_bev.pin``)."""
+    is done (traced as ``multi_bev.pin``).  A field that ``stack_batch``
+    already stacked into pinned memory is copied from where it lies
+    (``Tensor.pin_memory`` returns a pinned tensor as it is)."""
 
     def put(k: str) -> torch.Tensor:
         a = np.ascontiguousarray(arrays[k][rows], _ON_DISK.get(k, _UP[k])).view(_UP[k])
@@ -141,12 +143,17 @@ def _to_device(arrays: dict, device: torch.device, rows: slice = slice(None)) ->
         )
 
 
+# the key under which the ordering's counts ride home with a batch
+_ORDERING = "ordering_counts"
+
+
 def _wire(labeled: Cloud) -> dict:
     """The labeled clouds in the wire's widths, narrowed on their device
     (pctpu/pipelines/multi_bev.py:83-90): row/col to 16 and ``t`` to 32
-    bits, label to int16.  Traced as ``multi_bev.wire``."""
+    bits, label to int16; the ordering's counts too where it took them
+    (``Cloud.ordering_counts``).  Traced as ``multi_bev.wire``."""
     with profiler.span("multi_bev.wire"):
-        return {
+        out = {
             "xyz": labeled.xyz,
             "intensity": labeled.intensity,
             "row": labeled.row.to(torch.int16),
@@ -154,6 +161,9 @@ def _wire(labeled: Cloud) -> dict:
             "t": labeled.t.to(torch.int32),
             "label": labeled.label.to(torch.int16),
         }
+        if labeled.ordering_counts is not None:
+            out[_ORDERING] = labeled.ordering_counts
+        return out
 
 
 def _to_host(parts: list[dict]) -> dict:
@@ -163,12 +173,17 @@ def _to_host(parts: list[dict]) -> dict:
     shards of a mesh).  Every key gets a new host tensor, pinned on a card,
     that the parts copy into with ``non_blocking=True``; one synchronize a
     device ends the batch.  The arrays keep their tensors alive, so writers
-    may hold a batch's arrays while later batches come back.  Traced as
+    may hold a batch's arrays while later batches come back.  The
+    ordering's counts (``_wire``'s ``ordering_counts``) come back with the
+    batch and are recorded as the counters ``ordering.points`` and
+    ``ordering.slots_lost``, not handed out.  Traced as
     ``multi_bev.to_host``, its pinned allocations ``multi_bev.pin`` and the
     synchronize ``multi_bev.to_host.wait``."""
     with profiler.span("multi_bev.to_host"):
         devices = {x.device for p in parts for x in p.values()}
         pin = any(d.type == "cuda" for d in devices)
+        if not all(_ORDERING in p for p in parts):
+            parts = [{k: x for k, x in p.items() if k != _ORDERING} for p in parts]
         host = {}
         for k, x in parts[0].items():
             shape = (sum(p[k].shape[0] for p in parts), *x.shape[1:])
@@ -183,6 +198,10 @@ def _to_host(parts: list[dict]) -> dict:
             for d in devices:
                 if d.type == "cuda":
                     torch.cuda.current_stream(d).synchronize()
+        if _ORDERING in host:
+            points, lost = host.pop(_ORDERING).sum(0).tolist()
+            profiler.count("ordering.points", points)
+            profiler.count("ordering.slots_lost", lost)
         return {k: a.view(_ON_DISK[k]) if k in _ON_DISK else a for k, a in host.items()}
 
 

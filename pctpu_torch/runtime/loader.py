@@ -15,6 +15,7 @@ import threading
 from typing import Callable, Iterator
 
 import numpy as np
+import torch
 
 from pctpu_torch.config import SensorParams
 from pctpu_torch.io.pcd import read_pcd
@@ -138,9 +139,23 @@ def batched_prefetch(
         thread.join(timeout=5)
 
 
+def _stack_pinned(parts: list[np.ndarray]) -> np.ndarray:
+    """``np.stack(parts)`` written straight into a pinned host tensor of the
+    caching host allocator; the array keeps its tensor alive."""
+    dtype = np.result_type(*parts)
+    shape = (len(parts), *np.shape(parts[0]))
+    nbytes = int(np.prod(shape)) * dtype.itemsize
+    buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True).numpy()
+    return np.stack(parts, out=buf.view(dtype).reshape(shape))
+
+
 def stack_batch(payloads: list[dict[str, np.ndarray]]) -> dict[str, np.ndarray]:
     """Stack per-cloud field dicts into batched arrays (traced as
-    ``loader.stack``)."""
+    ``loader.stack``).  Where a card is present each field is stacked into
+    a pinned host tensor, so the upload copies it to the card as it is: one
+    host copy a batch where a fresh array and a pinned staging copy made
+    two."""
     keys = payloads[0].keys()
+    stack = _stack_pinned if torch.cuda.is_available() else np.stack
     with profiler.span("loader.stack"):
-        return {k: np.stack([p[k] for p in payloads]) for k in keys}
+        return {k: stack([p[k] for p in payloads]) for k in keys}

@@ -864,3 +864,93 @@ def test_wire_pinned_round_trip(dev):
         np.testing.assert_array_equal(a.view(np.uint8), kept[k].view(np.uint8), err_msg=k)
         np.testing.assert_array_equal(second[k].view(np.uint8), second_in[k].view(np.uint8),
                                       err_msg=k)
+
+
+@pytest.mark.cuda
+def test_ordering_counts_add_no_sync(dev):
+    """On the card, a general-path batch through ``preprocess_batch``,
+    ``_wire`` and ``_to_host`` raises as many of torch's sync warnings with
+    the ordering's counts taken (tracing on) as without, and the counters
+    hold the batch's in-bounds points and the slots lost to later points."""
+    import warnings
+
+    from pctpu_torch.ops.preprocess import preprocess_batch
+    from pctpu_torch.pipelines.multi_bev import _to_device, _to_host, _wire
+    from pctpu_torch.runtime import profiler
+
+    params = SensorParams(n_scan=32, horizon_scan=1056, ground_upper_scan=20, height_res=0.5)
+    rng = np.random.default_rng(23)
+    b, c = 4, 34720
+    arrays = {"xyz": rng.uniform(-60, 60, (b, c, 3)).astype(np.float32),
+              "intensity": rng.uniform(0, 1, (b, c)).astype(np.float32),
+              "row": rng.integers(0, 33, (b, c)).astype(np.uint16),
+              "col": rng.integers(0, 1056, (b, c)).astype(np.uint16),
+              "t": np.zeros((b, c), np.uint32), "label": np.full((b, c), -2, np.int16),
+              "count": np.array([c, 30000, 20000, 5], np.int32)}
+    points = lost = 0
+    for k in range(b):
+        n = int(arrays["count"][k])
+        row, col = arrays["row"][k, :n].astype(np.int64), arrays["col"][k, :n].astype(np.int64)
+        ok = row < 32
+        points += int(ok.sum())
+        lost += int(ok.sum()) - len(np.unique(row[ok] * 1056 + col[ok]))
+
+    def syncs() -> tuple[int, dict]:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode(1)
+            try:
+                labeled, multi, single = preprocess_batch(_to_device(arrays, dev), params)
+                host = _to_host([{**_wire(labeled), "multi": multi, "single": single}])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return sum("synchroniz" in str(w.message) for w in caught), host
+
+    syncs()  # the kernels' first build and launch
+    off, host_off = syncs()
+    with profiler.recording() as rec:
+        on, host_on = syncs()
+    assert on == off
+    assert rec.totals()["ordering.points"] == points
+    assert rec.totals()["ordering.slots_lost"] == lost
+    for k in host_off:
+        np.testing.assert_array_equal(host_on[k].view(np.uint8), host_off[k].view(np.uint8))
+
+
+@pytest.mark.cuda
+def test_stack_batch_pinned(dev):
+    """On the card ``stack_batch`` stacks each field into pinned memory,
+    bit for bit ``np.stack``; the upload copies it from there, and a kept
+    batch's arrays are unchanged after later batches reuse the allocator's
+    blocks."""
+    from pctpu_torch.pipelines.multi_bev import _upload
+    from pctpu_torch.runtime.loader import stack_batch
+
+    rng = np.random.default_rng(12)
+
+    def payloads():
+        return [{"xyz": rng.integers(0, 2**32, (33792, 3), np.uint32).view(np.float32),
+                 "intensity": rng.integers(0, 2**32, 33792, np.uint32).view(np.float32),
+                 "row": rng.integers(0, 2**16, 33792, np.uint16),
+                 "col": rng.integers(0, 2**16, 33792, np.uint16),
+                 "t": rng.integers(0, 2**32, 33792, np.uint32),
+                 "label": rng.integers(-2**15, 2**15, 33792, np.int16),
+                 "count": np.int32(33792 - k)} for k in range(4)]
+
+    first_in = payloads()
+    first = stack_batch(first_in)
+    kept = {k: a.copy() for k, a in first.items()}
+    for k, a in first.items():
+        assert torch.from_numpy(a).is_pinned(), k
+        want = np.stack([p[k] for p in first_in])
+        assert a.dtype == want.dtype and a.tobytes() == want.tobytes(), k
+    up = _upload(first, dev)
+    for _ in range(3):
+        later = stack_batch(payloads())
+        _upload(later, dev)
+        del later
+    torch.cuda.synchronize()
+    for k, a in first.items():
+        np.testing.assert_array_equal(a.view(np.uint8), kept[k].view(np.uint8), err_msg=k)
+        got = up[k].cpu().numpy().view(np.uint8)
+        np.testing.assert_array_equal(got, kept[k].view(np.uint8), err_msg=k)

@@ -116,3 +116,16 @@ def test_stack_batch():
     out = stack_batch([a, b])
     assert out["x"].shape == (2, 3)
     assert out["count"].tolist() == [3, 2]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.uint16, np.uint32, np.int16])
+def test_stack_batch_unpinned_is_np_stack(dtype):
+    """Without a card the batch is ``np.stack`` of the fields, dtype and
+    bits kept (on a card: ``test_stack_batch_pinned``)."""
+    rng = np.random.default_rng(3)
+    parts = [{"v": rng.integers(0, 60_000, (5, 3)).astype(dtype), "count": np.int32(k)}
+             for k in range(4)]
+    out = stack_batch(parts)
+    assert out["v"].dtype == dtype and out["count"].dtype == np.int32
+    assert out["v"].tobytes() == np.stack([p["v"] for p in parts]).tobytes()
+    assert out["count"].tolist() == [0, 1, 2, 3]

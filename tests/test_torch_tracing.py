@@ -332,3 +332,118 @@ def test_append_to_chrome_trace_needs_the_files_clock(tmp_path):
     path.write_text('{"traceEvents": []}')
     with pytest.raises(ValueError, match="baseTimeNanoseconds"):
         profiler.append_to_chrome_trace(str(path), *_events_with_a_span())
+
+
+def _general_batch(seed: int):
+    """A loader batch that takes the general ordering: random rows (some out
+    of bounds) and columns, ragged counts; (params, arrays, in-bounds points,
+    points that lost their slot to a later one)."""
+    params = SensorParams(n_scan=8, horizon_scan=64, ground_upper_scan=5, height_res=0.5)
+    rng = np.random.default_rng(seed)
+    b, c = 3, 600
+    arrays = {"xyz": rng.uniform(-30, 30, (b, c, 3)).astype(np.float32),
+              "intensity": rng.uniform(0, 1, (b, c)).astype(np.float32),
+              "row": rng.integers(0, params.n_scan + 1, (b, c)).astype(np.uint16),
+              "col": rng.integers(0, params.horizon_scan, (b, c)).astype(np.uint16),
+              "t": np.zeros((b, c), np.uint32), "label": np.full((b, c), -2, np.int16),
+              "count": np.array([600, 450, 10], np.int32)}
+    points, lost = np.sum([_cloud_counts(arrays, k, params) for k in range(b)], axis=0)
+    return params, arrays, int(points), int(lost)
+
+
+def _cloud_counts(arrays: dict, k: int, params: SensorParams) -> tuple[int, int]:
+    """Cloud ``k``'s in-bounds points and those a later point overwrote."""
+    n = int(arrays["count"][k])
+    row, col = arrays["row"][k, :n].astype(np.int64), arrays["col"][k, :n].astype(np.int64)
+    ok = row < params.n_scan
+    return int(ok.sum()), int(ok.sum()) - len(np.unique(row[ok] * params.horizon_scan + col[ok]))
+
+
+class _TorchCalls(torch.overrides.TorchFunctionMode):
+    """The names of the torch functions and tensor methods a block calls."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls: dict[str, int] = {}
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        name = getattr(func, "__name__", str(func))
+        self.calls[name] = self.calls.get(name, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+def test_ordering_counts_come_home_with_the_batch():
+    """``preprocess_batch`` on a general-path batch, then ``_wire`` and
+    ``_to_host``: the counters ``ordering.points`` and
+    ``ordering.slots_lost`` hold the batch's in-bounds points and the points
+    a later one overwrote, the span ``ordering.scatter`` wraps the ordering's
+    launches, the answers equal those of an untraced batch, and the count adds
+    only device work and the batch's own copy: no host read of a tensor."""
+    from pctpu_torch.ops.preprocess import preprocess_batch
+    from pctpu_torch.pipelines.multi_bev import _to_device, _to_host, _wire
+
+    params, arrays, points, lost = _general_batch(5)
+    assert 0 < lost < points
+
+    def batch():
+        with _TorchCalls() as log:
+            labeled, multi, single = preprocess_batch(_to_device(arrays, torch.device("cpu")),
+                                                      params)
+            host = _to_host([{**_wire(labeled), "multi": multi, "single": single}])
+        return host, log.calls
+
+    off, calls_off = batch()
+    with profiler.recording() as rec:
+        on, calls_on = batch()
+    assert rec.totals() == {"ordering.points": points, "ordering.slots_lost": lost}
+    assert len(rec.named("ordering.scatter")) == 1
+    (scatter,) = rec.named("ordering.scatter")
+    (order_ground,) = rec.named("preprocess.order_ground")
+    assert scatter.parent == order_ground.id
+    assert set(on) == set(off)
+    for k in off:
+        np.testing.assert_array_equal(on[k].view(np.uint8), off[k].view(np.uint8), err_msg=k)
+    added = {k: n - calls_off.get(k, 0) for k, n in calls_on.items() if n > calls_off.get(k, 0)}
+    assert not set(calls_off) - set(calls_on)
+    assert set(added) <= {"__get__", "__getitem__", "sum", "sub", "stack", "reshape", "empty",
+                          "copy_", "numpy"}, added
+    assert added["numpy"] == 1 and added["copy_"] == 1
+
+
+def test_the_fast_path_counts_nothing():
+    """Grid-ordered clouds (``assume_ordered``) skip the ordering: no span,
+    no counter."""
+    from pctpu_torch.ops.preprocess import preprocess_batch
+    from pctpu_torch.pipelines.multi_bev import _to_device, _to_host, _wire
+
+    params, arrays, _, _ = _general_batch(6)
+    g = params.grid_size
+    arrays = {**{k: v[:, :g] for k, v in arrays.items() if k != "count"},
+              "count": np.full(3, g, np.int32)}
+    with profiler.recording() as rec:
+        labeled, multi, single = preprocess_batch(_to_device(arrays, torch.device("cpu")),
+                                                  params, assume_ordered=True)
+        _to_host([{**_wire(labeled), "multi": multi, "single": single}])
+    assert rec.totals() == {}
+    assert rec.named("ordering.scatter") == []
+
+
+def test_ordering_counts_of_a_mesh_add_up():
+    """Over a two-device data mesh (each shard ordered on its own device,
+    then ``run_multi_bev``'s parts handed to ``_to_host``, or
+    ``sharded_preprocess`` joining them) the counts are the whole batch's."""
+    from pctpu_torch.parallel import mesh
+    from pctpu_torch.pipelines.multi_bev import _to_device, _to_host, _wire
+
+    params, arrays, _, _ = _general_batch(7)
+    arrays = {k: v[:2] for k, v in arrays.items()}
+    m = mesh.make_mesh(n_data=2, devices=[torch.device("cpu")] * 2)
+    shards = [_to_device(arrays, dev, rows) for rows, dev in mesh.data_slices(2, m, "b")]
+    with profiler.recording() as rec:
+        outs = mesh.preprocess_shards(shards, params)
+        _to_host([{**_wire(lab), "multi": mb, "single": sb} for lab, mb, sb in outs])
+        joined, _, _ = mesh.sharded_preprocess(m, params)(shards)
+    want = np.array([_cloud_counts(arrays, k, params) for k in range(2)])
+    assert rec.totals() == {"ordering.points": int(want[:, 0].sum()),
+                            "ordering.slots_lost": int(want[:, 1].sum())}
+    np.testing.assert_array_equal(joined.ordering_counts.numpy(), want)
