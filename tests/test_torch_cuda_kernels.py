@@ -954,3 +954,120 @@ def test_stack_batch_pinned(dev):
         np.testing.assert_array_equal(a.view(np.uint8), kept[k].view(np.uint8), err_msg=k)
         got = up[k].cpu().numpy().view(np.uint8)
         np.testing.assert_array_equal(got, kept[k].view(np.uint8), err_msg=k)
+
+
+def _upload_inputs(rng, cap, n):
+    """A ``to_numpy``-style dict of ``cap`` slots (every bit random in the
+    first ``n``, ``t`` as uint32) and ``make_cloud``'s ``n``-point inputs."""
+    bits = lambda *shape: rng.integers(0, 2**32, shape, np.uint32)  # noqa: E731
+    d = {"xyz": bits(cap, 3).view(np.float32), "intensity": bits(cap).view(np.float32),
+         "row": bits(cap).view(np.int32), "col": bits(cap).view(np.int32), "t": bits(cap),
+         "label": bits(cap).view(np.int32), "count": n}
+    for k in ("xyz", "intensity", "row", "col", "t", "label"):
+        d[k][n:] = 0
+    kw = {k: d[k][:n] for k in ("intensity", "row", "col", "t", "label")}
+    return d, kw
+
+
+def _cloud_bytes(c) -> dict:
+    return {k: getattr(c, k).cpu().contiguous().view(torch.uint8).numpy().tobytes()
+            for k in ("xyz", "intensity", "row", "col", "t", "label")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ctor", ["from_numpy", "make_cloud"])
+def test_staged_upload_matches_the_pageable_path(dev, monkeypatch, ctor):
+    """On the card a Cloud crosses as one staged block: every field bit
+    for bit what the six pageable copies gave, each a 256-byte-aligned
+    contiguous view, the tail zero."""
+    from pctpu_torch import cloud
+
+    d, kw = _upload_inputs(np.random.default_rng(24), 139264, 130000)
+
+    def build():
+        if ctor == "from_numpy":
+            return cloud.from_numpy(d, device=dev)
+        return cloud.make_cloud(d["xyz"][:130000], capacity=139264, device=dev, **kw)
+
+    staged = build()
+    monkeypatch.setattr(cloud, "_staged", lambda device: False)
+    pageable = build()
+    torch.cuda.synchronize()
+    assert _cloud_bytes(staged) == _cloud_bytes(pageable)
+    base = staged.xyz.untyped_storage().data_ptr()
+    for k in ("xyz", "intensity", "row", "col", "t", "label"):
+        v, w = getattr(staged, k), getattr(pageable, k)
+        assert v.device == dev and v.dtype == w.dtype and v.shape == w.shape, k
+        assert v.is_contiguous() and v.data_ptr() % 256 == 0, k
+        assert v.untyped_storage().data_ptr() == base, k
+        assert not v[130000:].any(), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("own_stream", [False, True])
+def test_staged_upload_blocks_outlive_their_copies(dev, own_stream):
+    """Two threads upload 200 distinct clouds each, back to back, on the
+    default stream or a stream of their own held up behind a long kernel,
+    so that every copy is still queued when later clouds are filled: each
+    Cloud holds its own bytes, so no pinned block was handed out again
+    before its copy had run, and the copies ran on the caller's stream."""
+    import threading
+
+    from pctpu_torch import cloud
+
+    cap = 16384
+    out: dict[int, list] = {0: [], 1: []}
+    streams = {k: torch.cuda.Stream(dev) if own_stream else torch.cuda.default_stream(dev)
+               for k in out}
+
+    def upload(thread):
+        with torch.cuda.stream(streams[thread]):
+            torch.cuda._sleep(int(1e9))  # about 0.5 s of the card's clock
+            for i in range(200):
+                v = thread * 1000 + i
+                d = {"xyz": np.full((cap, 3), v, np.float32),
+                     "intensity": np.full(cap, v, np.float32), "row": np.full(cap, v, np.int32),
+                     "col": np.full(cap, -v, np.int32), "t": np.full(cap, v, np.uint32),
+                     "label": np.full(cap, v, np.int32), "count": cap}
+                out[thread].append(cloud.from_numpy(d, device=dev))
+
+    threads = [threading.Thread(target=upload, args=(k,)) for k in out]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    for thread, clouds in out.items():
+        for i, c in enumerate(clouds):
+            v = thread * 1000 + i
+            for k, want in (("xyz", v), ("intensity", v), ("row", v), ("col", -v), ("t", v),
+                            ("label", v)):
+                assert bool((getattr(c, k) == want).all()), (thread, i, k)
+
+
+@pytest.mark.cuda
+def test_staged_upload_syncs_nothing_and_is_traced(dev):
+    """Under torch's sync debug mode set to raise, both constructors
+    upload without a host wait; traced, each counts
+    ``cloud.upload.staged`` with its fill span, ``from_numpy`` inside
+    ``cloud.upload``."""
+    from pctpu_torch import cloud
+    from pctpu_torch.runtime import profiler
+
+    d, kw = _upload_inputs(np.random.default_rng(25), 8192, 8000)
+    cloud.from_numpy(d, device=dev)  # the allocator's first blocks
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with profiler.recording() as rec:
+            a = cloud.from_numpy(d, device=dev)
+            b = cloud.make_cloud(d["xyz"][:8000], capacity=8192, device=dev, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert _cloud_bytes(a) == _cloud_bytes(b)
+    assert rec.totals() == {"cloud.upload.staged": 2}
+    (up,) = rec.named("cloud.upload")
+    fills = rec.named("cloud.upload.fill")
+    assert len(fills) == 2 and fills[0].parent == up.id
+
