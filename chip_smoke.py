@@ -19,22 +19,19 @@ Phases, each of which raises on failure (the exit code is then not 0):
    targets, a masked one and a query (a NaN target is never found: ROADMAP
    F13, README D23) and past 262,144 targets; the in-order
    segment sums at 65,536 voxel rows (and, in phase 9, at the sector sums
-   of 8 HDL-64E clouds): the tile kernel and the first design's walk
-   (``csrc/segment_sum.cu``) bit-equal to the twin and a second run, then,
-   in turns in the one call, each alone and with its wrapper, the tile
-   kernel without its fill, the twin, ``torch.index_add`` and
+   of 8 HDL-64E clouds): the tile kernel (``csrc/segment_sum.cu``)
+   bit-equal to the twin and a second run, then, in turns in the one call,
+   the tile kernel alone and with its wrapper, each with and without its
+   fill, the twin, ``torch.index_add`` and
    ``torch.segment_reduce``, the bound reckoned from the work (bytes, or
    the longest segment's chain of dependent adds), per-kernel profiler
    times, the launches a call makes and ptxas's registers.  Zero index
    mismatches and bit-equal results are required.  For each 1-NN case: the warp design
    (``csrc/nn_pruned_warp.cu``: seed writing a work list, persistent main
-   grid over it) with and without a prepared target, the first warp design
-   (its dense main grid, ``nn_1_pruned_batched_v1``), its prep
-   kernel, K4's <128, 1024, prod> instance (``csrc/nn_variant.cu``, K1's
-   shape on the variants' template) and the earlier block design (that
-   instance of K4's first design, ``csrc/nn_pruned.cu``), each against the
-   twin, then CUDA-event times of each (the launches alone and with the
-   wrapper; the two warp designs in turns), the pairs the warp design visits
+   grid over it) with and without a prepared target, its prep kernel and
+   K4's <128, 1024, prod> instance (``csrc/nn_variant.cu``, K1's shape on
+   the variants' template), each against the twin, then CUDA-event times of
+   each (the launches alone and with the wrapper), the pairs the warp design visits
    and its work items against the dense grid's blocks (its counting
    instance), the per-query 32-group oracle's pairs and the bound; one pass
    on a prepared target must put at most 3 kernels and the list's memset on
@@ -44,10 +41,9 @@ Phases, each of which raises on failure (the exit code is then not 0):
    49,152 bucket, each on a target of its own (thr 1 m), and 32 coarse
    problems of 8,192 flat points, two yaw guesses on each of 16 targets
    (thr 10 m): the batched prep (one launch) and pass (at most 3 kernels
-   and a memset) bit-equal to the twin, to the first warp design's pass and
-   to the 16 / 32 unbatched kernel calls, the batched pass, the first
-   design's and the unbatched passes timed in turns (alone and with the
-   wrappers), per-kernel profiler times of both designs, the work items
+   and a memset) bit-equal to the twin and to the 16 / 32 unbatched kernel
+   calls, the batched and the unbatched passes timed in turns (alone, and
+   the batched one with its wrapper), per-kernel profiler times, the work items
    against the dense grid's blocks and the bound (the sum of the single
    bounds);
 4. the voxel grid on the card twice and on the CPU: bit-identical;
@@ -65,9 +61,8 @@ Phases, each of which raises on failure (the exit code is then not 0):
    fine ms and the NN passes per pair are printed;
 7. the fused unpruned 1-NN (``cuda_knn.nn_1_fused``) at 65,536 × 65,536
    (uniform ±70 m), 16,384² and on the unsorted fine-stage bucket, 5% of
-   queries and targets masked: the new kernels (``csrc/nn_fused.cu``), the
-   first design's kernel (``nn_1_fused_v1``) and the twin bit for bit, and
-   a second run; then, in turns, each alone and with its wrapper (CUDA
+   queries and targets masked: the kernels (``csrc/nn_fused.cu``) and the
+   twin bit for bit, and a second run; then, in turns, alone and with the wrapper (CUDA
    events), per-kernel profiler times, the main kernel's grid, the twin,
    ``knn.nn_1``, the bound and, at the two uniform sizes,
    ``torch.cdist(q, t).min(1)``; exact ties (duplicate and mirrored
@@ -75,25 +70,20 @@ Phases, each of which raises on failure (the exit code is then not 0):
    splits;
 8. the argmin and tile-shape experiment
    (``pctpu_torch.experiments.nn_argmin --quick``): every mode and tile
-   shape, in the new design (``csrc/nn_variant.cu``) and the first
-   (``csrc/nn_pruned.cu``), bit-equal to its twin before it is timed, the
-   two designs in turns; ``nn_variant``, ``nn_variant_prep`` and
-   ``nn_variant_v1`` launched; the new prep at every compiled (tt, bf16)
-   bit-equal to its twin on the fine target; ptxas's lines of both
-   designs' kernels, with 0 bytes of spills required of the new ones;
+   shape (``csrc/nn_variant.cu``), bit-equal to its twin before it is
+   timed; ``nn_variant`` and ``nn_variant_prep`` launched; the prep at
+   every compiled (tt, bf16) bit-equal to its twin on the fine target;
+   ptxas's lines of the kernels, with 0 bytes of spills required;
 9. ``batch_multi_bev_gen`` on a ray-cast HDL-64E drive (64 grid-ordered
    clouds, two raw clouds with duplicate cells, one over the grid's
-   capacity; ``pctpu_torch.experiments.scene``): the BEV raster (the new
-   kernels, the first design's and a second run) and the in-order ground
-   sums bit-equal to their twins at B = 8, the raster timed in turns with
-   the first design's, with its per-kernel times, the atomics sent and at
-   most 2 kernels + 1 memset a call;
-   ``preprocess_batch`` timed with the tile kernel and, in turns, with the
-   walk in the sector sums' place, and with the first design's raster
-   kernels in the rasters' place; the wire of every loader batch
-   (``bench.wire_transfer``: MB and ms up and back over the pipelines'
-   narrow pinned wire, which must be pinned, and over the wide pageable one
-   in turns, a line a batch); the CLI in both
+   capacity; ``pctpu_torch.experiments.scene``): the BEV raster (the
+   kernels and a second run) and the in-order ground sums bit-equal to
+   their twins at B = 8, the raster timed alone and with its wrapper in
+   turns, with its per-kernel times, the atomics sent and at most 2
+   kernels + 1 memset a call; ``preprocess_batch`` timed in both compat
+   modes; the wire of every loader batch (``bench.wire_transfer``: MB and
+   ms up and back over the pipelines' narrow pinned wire, which must be
+   pinned, a line a batch); the CLI in both
    compat modes after a warm-up, printing clouds/s, its ``[TIME]`` lines,
    launches per batch, the writer and the largest ground sector; the
    tolerance tree byte-identical to the bit-exact tree, the card's tree to
@@ -111,10 +101,7 @@ Phases, each of which raises on failure (the exit code is then not 0):
    16, host syncs (torch's sync debug mode) per pair, per batch iteration
    of the ICP loop and by the line that made them, kernels on the card per
    pair and per problem iteration (torch.profiler), and the
-   ``BucketSpec`` hits and misses; then the top-part CLI at 16 once more
-   with the ICP's batched pass swapped for the first warp design's
-   (``nn_pruned_batched_v1`` launched, ``nn_pruned_batched`` not), its
-   pairs bit-equal to the work-list design's;
+   ``BucketSpec`` hits and misses;
 11. ``batch_cloud_manip`` and ``cloud_manip`` on a ray-cast HDL-64E drive (29
    grid-ordered clouds, two raw, one over capacity): one batch of 8 through
    the device step (ordering, ground marking, float BEV) bit-equal to the
@@ -124,8 +111,8 @@ Phases, each of which raises on failure (the exit code is then not 0):
    both compat modes; the wire of every loader batch, as in phase 9; the CLI
    in both modes after a warm-up (clouds/s, its
    ``[TIME]`` line, the CSV route, which must be the native one), the
-   host's share of a cloud stage by stage (load, results back beside the
-   wide pageable copies, CSV, PNG, labeled PCD), the trees byte-identical
+   host's share of a cloud stage by stage (load, results back, CSV, PNG,
+   labeled PCD), the trees byte-identical
    across modes, to the port's CPU run on 4 clouds and of every cloud, and,
    for every float BEV's CSV and PNG, to the oracle's;
    ``ground_sums``
@@ -199,18 +186,15 @@ Phases, each of which raises on failure (the exit code is then not 0):
    ``--details`` at full size — exit 0, ``verify`` "ok", every key of the
    line and of the details block present and finite (a recorded
    ``pipeline_span_error`` fails), the span's loader batch copied back
-   pinned (its wire printed beside the wide one), ``pct_of_roofline`` ≤ 100 in every
+   pinned (its wire printed), ``pct_of_roofline`` ≤ 100 in every
    utilization row, and ``bev_raster``, ``ground_sums``, ``nn_pruned``,
    ``nn_prep_batched``, ``nn_pruned_batched`` and ``segment_sum4``
    launched; ``graft_entry.entry()``'s step once; and
    ``dryrun_multichip(2)`` on the logical mesh ``[cuda:0] * 2``.
 
-Phase 3's two gates that read the profiler: the segment sums' tile kernel
-is held against the walk on each design's device time by torch.profiler,
-both called in turns in one window (their wall times, on a launch floor of
-≈ 15-25 µs, are printed only), and
-``experiments.card.profile_calls`` counts a call's kernels among the device
-events that start inside the calls' own span.
+Phase 3's gate that reads the profiler: ``experiments.card.profile_calls``
+counts a call's kernels among the device events that start inside the
+calls' own span.
 
 Each of paths 5-16 runs with the launch counts set to 0 just before it and
 read just after (in phases 15 and 16 each tool on its own); a kernel of the path launched no time fails the run.  In
@@ -268,13 +252,10 @@ def print_ptxas(path) -> dict[str, str]:
         if m:
             name = m.group(1)
             tpl = re.findall(r"Li(\d+)E", name)
-            short = re.search(r"(nn_pruned_kernel|nn_variant_(?:prep|seed|main|finish)_kernel"
-                              r"|nn_fused_(?:v1|prep|main|finish)_kernel|segment_sum_tile_kernel"
-                              r"|segment_sum_walk_kernel|segment_fill_kernel"
-                              r"|bev_raster_v1_kernel|bev_expand_v1_kernel"
-                              r"|bev_raster_kernel|bev_expand_kernel|nn_prep_kernel"
-                              r"|nn_seed_kernel|nn_main_kernel|nn_finish_kernel"
-                              r"|nn_seed_v1_kernel|nn_main_v1_kernel"
+            short = re.search(r"(nn_variant_(?:prep|seed|main|finish)_kernel"
+                              r"|nn_fused_(?:prep|main|finish)_kernel|segment_sum_tile_kernel"
+                              r"|segment_fill_kernel|bev_raster_kernel|bev_expand_kernel"
+                              r"|nn_prep_kernel|nn_seed_kernel|nn_main_kernel|nn_finish_kernel"
                               r"|pca_windows_kernel|pca_moments_kernel)", name)
             if short:  # the kernel's own template arguments, not its parameters'
                 args = re.match(r"I((?:L[ib]\d+E)+)E", name[short.end():])
@@ -342,11 +323,11 @@ def library_sums_ms(rows: torch.Tensor, seg: torch.Tensor, n_out: int) -> tuple[
 def sums_case(name: str, args: tuple, count_as: str, ptxas: dict, smi: str,
               clock_mhz: float, fill: bool = True) -> dict:
     """One shape of the in-order segment sums, ``args`` = (values, seg, init,
-    n_out, order): the tile kernel and the first design's walk, each held bit
-    for bit against the twin, and the tile kernel against a second run of
-    itself; then, in this one call, each alone (the C call's launches, CUDA
-    events, and per kernel by torch.profiler) and with its wrapper, the tile
-    kernel without its fill, the twin, the two library calls, the bound
+    n_out, order): the tile kernel held bit for bit against the twin and
+    against a second run of itself; then, in this one call, the tile kernel
+    alone (the C call's launches, CUDA events, and per kernel by
+    torch.profiler) and with its wrapper, each with and without its fill,
+    the twin, the two library calls, the bound
     reckoned from the work, and the launches a wrapper call makes.  ``fill``
     says whether the path's caller asks for the fill: the entry's ``ms`` and
     ``wrapper_ms`` are the tile kernel's as the path calls it."""
@@ -359,29 +340,26 @@ def sums_case(name: str, args: tuple, count_as: str, ptxas: dict, smi: str,
     want = voxel.segment_sum_sorted_reference(*args)
     got = voxel.segment_sum_sorted(*args, count_as=count_as)
     err = compare(f"{name}: tile kernel", [got], [want])
-    compare(f"{name}: walk kernel", [voxel.segment_sum_walk(*args)], [want])
     compare(f"{name}: tile kernel, second run",
             [voxel.segment_sum_sorted(*args, count_as=count_as)], [got])
     launch = {
         "tile": voxel._segment_launcher(*args, count_as)[0],
         "tile, no fill": voxel._segment_launcher(*args, count_as, fill=False)[0],
-        "walk": voxel._segment_launcher(*args, "segment_sum_walk", walk=True)[0],
     }
     wrapper = {
         "tile": lambda: voxel.segment_sum_sorted(*args, count_as=count_as),
         "tile, no fill": lambda: voxel.segment_sum_sorted(*args, count_as=count_as, fill=False),
-        "walk": lambda: voxel.segment_sum_walk(*args),
     }
-    # in turns: tile, walk, walk, tile
+    # in turns: with the fill, without, without, with
     alone = {k: [] for k in launch}
     wrapped = {k: [] for k in wrapper}
-    for k in ("tile", "tile, no fill", "walk", "walk", "tile, no fill", "tile"):
+    for k in ("tile", "tile, no fill", "tile, no fill", "tile"):
         alone[k].append(cuda_ms(launch[k], reps=50))
-    for k in ("tile", "tile, no fill", "walk", "walk", "tile, no fill", "tile"):
+    for k in ("tile", "tile, no fill", "tile, no fill", "tile"):
         wrapped[k].append(cuda_ms(wrapper[k], reps=50))
     alone = {k: min(v) for k, v in alone.items()}
     wrapped = {k: min(v) for k, v in wrapped.items()}
-    prof = {k: profile_calls(fn) for k, fn in wrapper.items()}
+    prof = profile_calls(wrapper["tile"])
     rows = values if order is None else values[order]
     twin_ms = cuda_ms(lambda: voxel.segment_sum_sorted_reference(*args), reps=2, warmup=1)
     add_ms, reduce_ms = library_sums_ms(rows, seg, n_out)
@@ -391,32 +369,17 @@ def sums_case(name: str, args: tuple, count_as: str, ptxas: dict, smi: str,
           f"segments, longest {bound['longest']}; tile kernel alone {alone['tile']:.4f} ms "
           f"(without its fill {alone['tile, no fill']:.4f}), with wrapper "
           f"{wrapped['tile']:.4f} ms (without its fill {wrapped['tile, no fill']:.4f}; the path "
-          f"calls it with{'' if fill else 'out'}); walk alone {alone['walk']:.4f} ms, with wrapper "
-          f"{wrapped['walk']:.4f} ms; twin {twin_ms:.4f} ms; torch.index_add {add_ms:.4f} ms, "
+          f"calls it with{'' if fill else 'out'}); twin {twin_ms:.4f} ms; torch.index_add {add_ms:.4f} ms, "
           f"torch.segment_reduce {reduce_ms:.4f} ms; bound {bound['ms']:.6f} ms "
           f"({bound['by']}: {bound['bytes']} B, chain {bound['chain_ms']:.6f} ms at "
           f"{clock_mhz:.0f} MHz), reached {bound['ms'] / alone['tile' if fill else 'tile, no fill']:.4f}; a wrapper call puts "
-          f"{prof['tile'][0]} kernels + {prof['tile'][1]} copies/memsets on the card (walk "
-          f"{prof['walk'][0]} + {prof['walk'][1]}); device ms by kernel (torch.profiler) "
-          f"{ {k: round(v, 6) for k, v in {**prof['walk'][2], **prof['tile'][2]}.items()} }; "
+          f"{prof[0]} kernels + {prof[1]} copies/memsets on the card; device ms by kernel "
+          f"(torch.profiler) { {k: round(v, 6) for k, v in prof[2].items()} }; "
           f"ptxas {regs}; card {smi}")
-    if prof["tile"][0] > 2 or prof["tile"][1]:
+    if prof[0] > 2 or prof[1]:
         raise AssertionError(f"{name}: a wrapper call launches more than fill + sums")
-    # held on the card's own time for each design's kernels (torch.profiler):
-    # the wall times above sit on a launch floor of ≈ 15-25 µs and stay
-    # printed.  Both designs run in turns in one window, so that they share
-    # the card's clock state: each in a window of its own, the same fill
-    # kernel read 0.55 µs in one window and 1.06 µs in the next
-    both = profile_calls(lambda: (wrapper["tile"](), wrapper["walk"]()))[2]
-    fill = both.get("segment_fill_kernel", 0.0) / 2
-    device_ms = {k: both[f"segment_sum_{k}_kernel"] + fill for k in ("tile", "walk")}
-    print(f"  {name}: device ms a call, fill included: tile kernel {device_ms['tile']:.6f}, "
-          f"walk {device_ms['walk']:.6f}")
-    if device_ms["tile"] > 1.25 * device_ms["walk"]:
-        raise AssertionError(f"{name}: the tile kernel is slower than the walk on the card")
     path = "tile" if fill else "tile, no fill"
-    return {"err": err, "ms": alone[path], "wrapper_ms": wrapped[path],
-            "walk_ms": alone["walk"], "walk_wrapper_ms": wrapped["walk"], "plain_ms": twin_ms,
+    return {"err": err, "ms": alone[path], "wrapper_ms": wrapped[path], "plain_ms": twin_ms,
             "library_ms": add_ms, "segment_reduce_ms": reduce_ms, "bound": bound}
 
 
@@ -430,21 +393,17 @@ def sums_entry(name: str, replaces: str, launches: int, case: dict) -> dict:
             "ms": case["ms"], "plain_ms": case["plain_ms"], "bound_ms": bound["ms"],
             "bound_by": "bytes" if bound["by"] == "bytes" else "operations",
             "library_ms": case["library_ms"], "bound_detail": bound["by"],
-            "wrapper_ms": case["wrapper_ms"], "walk_ms": case["walk_ms"],
-            "segment_reduce_ms": case["segment_reduce_ms"]}
+            "wrapper_ms": case["wrapper_ms"], "segment_reduce_ms": case["segment_reduce_ms"]}
 
 
 def nn_case(name: str, args, md, smi: str) -> dict:
     """One phase-3 case of the bbox-pruned 1-NN: the warp design (its work
-    list, P = 1) with and without a prepared target, the first warp design
-    (``nn_1_pruned_batched_v1``: dense main grid), the prep kernel, K4's
-    <128, 1024, prod> instance (``csrc/nn_variant.cu``, K1's shape on the
-    variants' template) and the earlier block design (the same instance of
-    the first design, ``nn_1_pruned_variant_v1``), each held bit for bit
-    against its twin; then their times (the two warp designs in turns), the
-    pairs the warp design visits and its work items against the dense grid's
-    blocks (its counting instance), the per-query 32-group oracle's pairs and
-    the bound."""
+    list, P = 1) with and without a prepared target, the prep kernel and
+    K4's <128, 1024, prod> instance (``csrc/nn_variant.cu``, K1's shape on
+    the variants' template), each held bit for bit against its twin; then
+    their times, the pairs the warp design visits and its work items
+    against the dense grid's blocks (its counting instance), the per-query
+    32-group oracle's pairs and the bound."""
     from pctpu_torch.experiments.card import (NN_FLOP_PER_PAIR, bound_ms, cuda_ms, oracle_pairs,
                                               profile_calls)
     from pctpu_torch.ops import cuda_knn
@@ -462,29 +421,19 @@ def nn_case(name: str, args, md, smi: str) -> dict:
             ("warp design", cuda_knn.nn_1_pruned(*args, max_distance=md)),
             ("warp design, prepared", cuda_knn.nn_1_pruned(q, qm, max_distance=md,
                                                            prepared=prep)),
-            ("first warp design", cuda_knn.nn_1_pruned_batched_v1(q, qm, prep, md)),
             ("K4 <128, 1024, prod>", cuda_knn.nn_1_pruned_variant(*args, md, cuda_knn.TQ,
-                                                                  cuda_knn.TT, "prod")),
-            ("block design", cuda_knn.nn_1_pruned_variant_v1(*args, md, cuda_knn.TQ,
-                                                            cuda_knn.TT, "prod"))):
+                                                                  cuda_knn.TT, "prod"))):
         torch.cuda.synchronize()
         err = max(err, compare(f"{name}: {label}", got, want))
     d2 = want[1]
     launch = cuda_knn._pass_launcher(q, qm, prep, thr2)[0]
-    warp_v1 = cuda_knn._pass_launcher(q, qm, prep, thr2, v1=True)[0]
-    turns = {"alone": [], "v1_alone": []}
-    for k in ("alone", "v1_alone", "v1_alone", "alone"):
-        turns[k].append(cuda_ms(launch if k == "alone" else warp_v1, reps=50))
-    old = cuda_knn._pruned_launcher(q, qm, t, tm, thr2, cuda_knn.TQ, cuda_knn.TT, "prod")[0]
     variant_prep = cuda_knn.prepare_variant_target(t, tm, cuda_knn.TT)
     variant = cuda_knn._variant_launcher(q, qm, variant_prep, t, thr2, cuda_knn.TQ,
                                          cuda_knn.TT, "prod")[0]
     out = {
-        **{k: min(v) for k, v in turns.items()},
+        "alone": cuda_ms(launch, reps=50),
         "wrapper": cuda_ms(lambda: cuda_knn.nn_1_pruned(q, qm, max_distance=md,
                                                         prepared=prep), reps=50),
-        "v1_wrapper": cuda_ms(lambda: cuda_knn.nn_1_pruned_batched_v1(q, qm, prep, md),
-                              reps=50),
         "unprepared": cuda_ms(lambda: cuda_knn.nn_1_pruned(*args, max_distance=md), reps=50),
         "prep": cuda_ms(lambda: cuda_knn.prepare_target(t, tm), reps=50),
         "prep_twin": cuda_ms(lambda: cuda_knn.prepare_target_reference(t, tm), reps=5),
@@ -493,15 +442,11 @@ def nn_case(name: str, args, md, smi: str) -> dict:
             *args, md, cuda_knn.TQ, cuda_knn.TT, "prod"), reps=50),
         "variant_prep": cuda_ms(lambda: cuda_knn.prepare_variant_target(t, tm, cuda_knn.TT),
                                 reps=50),
-        "old_alone": cuda_ms(old, reps=20),
-        "old_wrapper": cuda_ms(lambda: cuda_knn.nn_1_pruned_variant_v1(
-            *args, md, cuda_knn.TQ, cuda_knn.TT, "prod"), reps=20),
         "twin": cuda_ms(lambda: cuda_knn.nn_1_pruned_reference(*args, max_distance=md),
                         reps=3, warmup=1),
         "err": err, "prep_err": prep_err, "library": None,
     }
     by_kernel = profile_calls(launch, reps=20)[2]
-    v1_by_kernel = profile_calls(warp_v1, reps=20)[2]
     variant_by_kernel = profile_calls(variant, reps=20)[2]
     visited, items = cuda_knn.pass_counts(q, qm, prep, md)
     oracle = oracle_pairs(q, qm, d2, prep.group_box, thr2)
@@ -517,24 +462,18 @@ def nn_case(name: str, args, md, smi: str) -> dict:
     print(f"  {name}: Q={nq} T={nt} found={int(torch.isfinite(d2).sum())}; warp design "
           f"alone {out['alone']:.4f} ms, with wrapper {out['wrapper']:.4f} ms, unprepared "
           f"{out['unprepared']:.4f} ms (prep {out['prep']:.4f} ms, its twin "
-          f"{out['prep_twin']:.4f} ms); first warp design alone {out['v1_alone']:.4f} ms, with "
-          f"wrapper {out['v1_wrapper']:.4f} ms (the two alone in turns, the least of two each); "
-          f"work items {items} against the dense grid's {-(-warps // 4) * tiles} blocks of 4 "
+          f"{out['prep_twin']:.4f} ms); work items {items} against the dense grid's {-(-warps // 4) * tiles} blocks of 4 "
           f"warps ({warps * tiles} warp items); K4 <128, 1024, prod> alone {out['variant_alone']:.4f} "
           f"ms, with wrapper {out['variant_wrapper']:.4f} ms (its prep "
           f"{out['variant_prep']:.4f} ms), {out['variant_alone'] / out['alone']:.3f}x K1 "
-          f"alone; block design alone {out['old_alone']:.4f} ms, with "
-          f"wrapper {out['old_wrapper']:.4f} ms; twin {out['twin']:.4f} ms; pairs visited "
+          f"alone; twin {out['twin']:.4f} ms; pairs visited "
           f"{visited} ({visited / (nq * nt):.6f} of Q·T), oracle {oracle}; bound "
           f"{out['bound']:.6f} ms ({out['bound_by']}: {n_bytes} B, "
-          f"{NN_FLOP_PER_PAIR * oracle} flop), reached {out['bound'] / out['alone']:.4f} (first "
-          f"warp design {out['bound'] / out['v1_alone']:.4f}, K4 "
-          f"<128, 1024, prod> {out['bound'] / out['variant_alone']:.4f}, block design "
-          f"{out['bound'] / out['old_alone']:.4f}); prep bound "
+          f"{NN_FLOP_PER_PAIR * oracle} flop), reached {out['bound'] / out['alone']:.4f} (K4 "
+          f"<128, 1024, prod> {out['bound'] / out['variant_alone']:.4f}); prep bound "
           f"{out['prep_bound']:.6f} ms ({out['prep_bound_by']}: {nt * 13 + target_bytes} B); "
           f"device ms by kernel (torch.profiler) "
-          f"{ {k: round(v, 6) for k, v in by_kernel.items()} }, the first warp design's "
-          f"{ {k: round(v, 6) for k, v in v1_by_kernel.items()} }, K4's "
+          f"{ {k: round(v, 6) for k, v in by_kernel.items()} }, K4's "
           f"{ {k: round(v, 6) for k, v in variant_by_kernel.items()} }; card {smi}")
     out["items"] = items
     return out
@@ -544,10 +483,9 @@ def batched_nn_case(name: str, q, qm, t, tm, md, smi: str, library: bool = False
     """K1 over a problem axis: P problems ``q`` (P, Q, 3) on Bt targets ``t``
     (Bt, T, 3), problem p in target p // (P / Bt).  The batched prep (one
     launch) and pass (a memset and three launches) bit for bit against the
-    twin, the first warp design's pass (``nn_1_pruned_batched_v1``, three
-    launches) and Bt / P unbatched kernel calls; then, in turns in this
-    call, the batched pass, the first design's and the P unbatched passes
-    alone, and the two designs with their wrappers (CUDA events), the prep,
+    twin and Bt / P unbatched kernel calls; then, in turns in this call, the
+    batched pass and the P unbatched passes alone, and the batched pass with
+    its wrapper (CUDA events), the prep,
     per-kernel profiler times and what a call puts on the card, the work
     items against the dense grid's blocks, the twin, and the bound: the sum
     of the problems' single bounds, each counted as phase 3 counts one
@@ -576,32 +514,26 @@ def batched_nn_case(name: str, q, qm, t, tm, md, smi: str, library: bool = False
     torch.cuda.synchronize()
     twin_ms = (time.perf_counter() - t0) * 1e3
     err = compare(f"{name}: batched pass against the twin", got, want)
-    v1_err = compare(f"{name}: the first warp design against the twin",
-                     cuda_knn.nn_1_pruned_batched_v1(q, qm, prep, md), want)
     one = [cuda_knn.nn_1_pruned(q[k], qm[k], prepared=singles[k // per], max_distance=md)
            for k in range(n_problems)]
     compare(f"{name}: batched pass against {n_problems} unbatched kernel calls", got,
             [torch.stack([o[0] for o in one]), torch.stack([o[1] for o in one])])
     batched = cuda_knn._pass_launcher(q, qm, prep, thr2)[0]
-    v1 = cuda_knn._pass_launcher(q, qm, prep, thr2, v1=True)[0]
     unbatched = [cuda_knn._pass_launcher(q[k], qm[k], singles[k // per], thr2)[0]
                  for k in range(n_problems)]
-    timed = {"batched": batched, "v1": v1, "unbatched": lambda: [f() for f in unbatched],
-             "wrapper": lambda: cuda_knn.nn_1_pruned_batched(q, qm, prep, md),
-             "v1_wrapper": lambda: cuda_knn.nn_1_pruned_batched_v1(q, qm, prep, md)}
+    timed = {"batched": batched, "unbatched": lambda: [f() for f in unbatched],
+             "wrapper": lambda: cuda_knn.nn_1_pruned_batched(q, qm, prep, md)}
     ms = {k: [] for k in timed}
-    for k in ("batched", "v1", "unbatched", "wrapper", "v1_wrapper", "v1_wrapper", "wrapper",
-              "unbatched", "v1", "batched"):
+    for k in ("batched", "unbatched", "wrapper", "wrapper", "unbatched", "batched"):
         ms[k].append(cuda_ms(timed[k], reps=20))
     ms = {k: min(v) for k, v in ms.items()}
     prep_ms = cuda_ms(lambda: cuda_knn.prepare_targets(t, tm), reps=50)
     prep_twin_ms = cuda_ms(lambda: cuda_knn.prepare_targets_reference(t, tm), reps=2, warmup=1)
     kernels, copies, by_kernel = profile_calls(batched, reps=20)
-    v1_kernels, v1_copies, v1_by_kernel = profile_calls(v1, reps=20)
     prep_kernels, prep_copies, _ = profile_calls(lambda: cuda_knn.prepare_targets(t, tm), reps=20)
-    if kernels > 3 or copies > 1 or v1_kernels > 3 or v1_copies:
+    if kernels > 3 or copies > 1:
         raise AssertionError(f"{name}: a batched pass puts {kernels} kernels + {copies} copies "
-                             f"on the card, the first design's {v1_kernels} + {v1_copies}")
+                             "on the card")
     if prep_kernels != 1 or prep_copies:
         raise AssertionError(f"{name}: the batched prep is {prep_kernels} kernels")
     nq, nt = q.shape[1], t.shape[1]
@@ -623,37 +555,32 @@ def batched_nn_case(name: str, q, qm, t, tm, md, smi: str, library: bool = False
         torch.cuda.empty_cache()
     print(f"  {name}: P={n_problems} problems of Q={nq} on Bt={n_targets} targets of T={nt}; "
           f"batched pass alone {ms['batched']:.4f} ms, with wrapper {ms['wrapper']:.4f} ms; "
-          f"the first warp design alone {ms['v1']:.4f} ms, with wrapper {ms['v1_wrapper']:.4f} "
-          f"ms; the {n_problems} unbatched passes alone {ms['unbatched']:.4f} ms (CUDA events, "
+          f"the {n_problems} unbatched passes alone {ms['unbatched']:.4f} ms (CUDA events, "
           f"in turns, the least of two turns each); a batched pass puts {kernels} kernels + "
-          f"{copies} copies/memsets on the card (the list's count), the first design's "
-          f"{v1_kernels} + {v1_copies}; work items {items} against the dense grid's "
+          f"{copies} copies/memsets on the card (the list's count); work items {items} against the dense grid's "
           f"{-(-warps // 4) * tiles * n_problems} blocks of 4 warps "
           f"({warps * tiles * n_problems} warp items), pairs visited {pairs}; the batched prep "
           f"{prep_kernels} kernel ({prep_ms:.4f} ms, its twin {prep_twin_ms:.4f} ms, bound "
           f"{prep_bound[0]:.6f} ms by {prep_bound[1]}); device ms by kernel (torch.profiler) "
-          f"{ {k: round(v, 6) for k, v in by_kernel.items()} }, the first design's "
-          f"{ {k: round(v, 6) for k, v in v1_by_kernel.items()} }; twin {twin_ms:.1f} ms; bound "
+          f"{ {k: round(v, 6) for k, v in by_kernel.items()} }; twin {twin_ms:.1f} ms; bound "
           f"{bound:.6f} ms (sum of the single bounds; bytes {t_bytes:.6f}, operations "
-          f"{t_ops:.6f}), reached {bound / ms['batched']:.4f} (the first design "
-          f"{bound / ms['v1']:.4f})"
+          f"{t_ops:.6f}), reached {bound / ms['batched']:.4f}"
           + (f"; torch.cdist(q, t).min(1) a problem, {n_problems} calls {lib_ms:.4f} ms"
              if library else "") + f"; card {smi}")
     return {"err": err, "prep_err": prep_err, "ms": ms["batched"], "unbatched_ms": ms["unbatched"],
-            "v1_ms": ms["v1"], "v1_err": v1_err, "wrapper_ms": ms["wrapper"], "v1_wrapper_ms": ms["v1_wrapper"],
-            "items": items, "dense_blocks": -(-warps // 4) * tiles * n_problems,
-            "by_kernel": by_kernel, "v1_by_kernel": v1_by_kernel,
+            "wrapper_ms": ms["wrapper"], "items": items,
+            "dense_blocks": -(-warps // 4) * tiles * n_problems, "by_kernel": by_kernel,
             "plain_ms": twin_ms, "bound": bound, "bound_by": "operations" if t_ops >= t_bytes
             else "bytes", "library_ms": lib_ms, "prep_ms": prep_ms, "prep_plain_ms": prep_twin_ms,
             "prep_bound": prep_bound}
 
 
 def raster_case(labeled, params, smi: str, ptxas: dict) -> dict:
-    """The BEV raster at the path's batch: the new kernels, the first design's
-    and the twin byte for byte, and the new ones against a second run; then,
-    in turns in this one call, the new C call alone and both wrappers (CUDA
-    events), per-kernel device ms and what a call puts on the card
-    (torch.profiler), the atomics each raster kernel sends, and the bound."""
+    """The BEV raster at the path's batch: the kernels and the twin byte for
+    byte, and the kernels against a second run; then, in turns in this one
+    call, the C call alone and with its wrapper (CUDA events), per-kernel
+    device ms and what a call puts on the card (torch.profiler), the atomics
+    the raster kernel sends, and the bound."""
     from pctpu_torch.experiments.card import bound_ms, cuda_ms, profile_calls
     from pctpu_torch.ops import bev
 
@@ -661,36 +588,31 @@ def raster_case(labeled, params, smi: str, ptxas: dict) -> dict:
     want = bev.fused_multi_single_bev_reference(labeled, res)
     rasters = bev.fused_multi_single_bev(labeled, res)
     err = compare("bev_raster (B = 8)", rasters, want)
-    compare("bev_raster (B = 8): first design", bev.fused_multi_single_bev_v1(labeled, res), want)
     compare("bev_raster (B = 8): second run", bev.fused_multi_single_bev(labeled, res), rasters)
     timed = {
         "alone": bev._raster_launcher(labeled, res)[0],
         "wrapper": lambda: bev.fused_multi_single_bev(labeled, res),
-        "v1 wrapper": lambda: bev.fused_multi_single_bev_v1(labeled, res),
     }
     ms = {k: [] for k in timed}
-    for k in ("alone", "wrapper", "v1 wrapper", "v1 wrapper", "wrapper", "alone"):
+    for k in ("alone", "wrapper", "wrapper", "alone"):
         ms[k].append(cuda_ms(timed[k], reps=50))
     ms = {k: min(v) for k, v in ms.items()}
-    new_prof = profile_calls(timed["wrapper"])
-    old_prof = profile_calls(timed["v1 wrapper"])
+    prof = profile_calls(timed["wrapper"])
     twin_ms = cuda_ms(lambda: bev.fused_multi_single_bev_reference(labeled, res), reps=5)
-    sent = {"new": bev.atomics_sent(labeled, res),
-           "first design": bev.atomics_sent(labeled, res, v1=True)}
+    sent = bev.atomics_sent(labeled, res)
     # xyz and label (16 B a point) read once, both rasters (1 B a cell) written
     bound = bound_ms(labeled.label.numel() * 16 + sum(r.numel() for r in rasters), 0)
     regs = {k: v for k, v in ptxas.items() if k.startswith("bev_")}
-    print(f"  bev_raster: alone {ms['alone']:.4f} ms, with wrapper {ms['wrapper']:.4f} ms; first "
-          f"design with wrapper {ms['v1 wrapper']:.4f} ms (CUDA events, the least of two turns "
-          f"each); twin {twin_ms:.4f} ms; bound {bound[0]:.6f} ms ({bound[1]}), reached "
-          f"{bound[0] / ms['alone']:.4f}; a call puts {new_prof[0]} kernels + {new_prof[1]} "
-          f"memsets on the card (first design {old_prof[0]} + {old_prof[1]}); device ms "
-          f"(torch.profiler) { {k: round(v, 6) for k, v in {**old_prof[2], **new_prof[2]}.items()} }; "
-          f"atomics sent {sent}; ptxas {regs}; card {smi}")
-    if new_prof[0] > 2 or new_prof[1] > 1:
+    print(f"  bev_raster: alone {ms['alone']:.4f} ms, with wrapper {ms['wrapper']:.4f} ms (CUDA "
+          f"events, the least of two turns each); twin {twin_ms:.4f} ms; bound {bound[0]:.6f} ms "
+          f"({bound[1]}), reached {bound[0] / ms['alone']:.4f}; a call puts {prof[0]} kernels + "
+          f"{prof[1]} memsets on the card; device ms (torch.profiler) "
+          f"{ {k: round(v, 6) for k, v in prof[2].items()} }; atomics sent {sent}; ptxas {regs}; "
+          f"card {smi}")
+    if prof[0] > 2 or prof[1] > 1:
         raise AssertionError("bev_raster: a call puts more than 2 kernels + 1 memset on the card")
-    return {"err": err, "ms": ms["alone"], "wrapper_ms": ms["wrapper"],
-            "v1_wrapper_ms": ms["v1 wrapper"], "plain_ms": twin_ms, "bound": bound}
+    return {"err": err, "ms": ms["alone"], "wrapper_ms": ms["wrapper"], "plain_ms": twin_ms,
+            "bound": bound}
 
 
 def fused_edge_cases(dev: torch.device) -> list:
@@ -722,10 +644,10 @@ def fused_edge_cases(dev: torch.device) -> list:
 
 
 def fused_case(name: str, args: tuple, smi: str, got=None, library: bool = False) -> dict:
-    """One shape of the fused unpruned 1-NN: the new kernels (``got`` where
-    the caller has run them already), the first design's kernel and the twin
-    bit for bit, and a second run; then, in turns in this one call, each C
-    call alone and with its wrapper (CUDA events), per-kernel device ms
+    """One shape of the fused unpruned 1-NN: the kernels (``got`` where the
+    caller has run them already) and the twin bit for bit, and a second run;
+    then, in turns in this one call, the C call alone and with its wrapper
+    (CUDA events), per-kernel device ms
     (torch.profiler), the main kernel's grid, the twin, ``knn.nn_1``, the
     bound (8 flop a pair on every pair) and, with ``library``,
     ``torch.cdist(q, t).min(1)``."""
@@ -736,23 +658,18 @@ def fused_case(name: str, args: tuple, smi: str, got=None, library: bool = False
     want = cuda_knn.nn_1_fused_reference(*args)
     got = cuda_knn.nn_1_fused(*args) if got is None else got
     err = compare(name, got, want)
-    compare(f"{name}: first design", cuda_knn.nn_1_fused_v1(*args), want)
     compare(f"{name}: second run", cuda_knn.nn_1_fused(*args), got)
     xla = knn.nn_1(*args)
     agree = float((xla[0] == got[0]).float().mean())
     timed = {
         "alone": cuda_knn._fused_launcher(*args)[0],
-        "v1 alone": cuda_knn._fused_v1_launcher(*args)[0],
         "wrapper": lambda: cuda_knn.nn_1_fused(*args),
-        "v1 wrapper": lambda: cuda_knn.nn_1_fused_v1(*args),
     }
     ms = {k: [] for k in timed}
-    for k in ("alone", "v1 alone", "v1 alone", "alone",
-              "wrapper", "v1 wrapper", "v1 wrapper", "wrapper"):
+    for k in ("alone", "wrapper", "wrapper", "alone"):
         ms[k].append(cuda_ms(timed[k], reps=10))
     ms = {k: min(v) for k, v in ms.items()}
-    new_prof = profile_calls(timed["alone"], reps=10)
-    old_prof = profile_calls(timed["v1 alone"], reps=10)
+    prof = profile_calls(timed["alone"], reps=10)
     twin_ms = cuda_ms(lambda: cuda_knn.nn_1_fused_reference(*args), reps=2, warmup=1)
     xla_ms = cuda_ms(lambda: knn.nn_1(*args), reps=5)
     bound = bound_ms(q.shape[0] * (13 + 8) + t.shape[0] * 13, 8 * q.shape[0] * t.shape[0])
@@ -761,25 +678,23 @@ def fused_case(name: str, args: tuple, smi: str, got=None, library: bool = False
     if library:
         lib_ms = cuda_ms(lambda: torch.cdist(q, t).min(1), reps=3, warmup=1)
         torch.cuda.empty_cache()
-    print(f"  {name}: alone {ms['alone']:.4f} ms, with wrapper {ms['wrapper']:.4f} ms; first design "
-          f"alone {ms['v1 alone']:.4f} ms, with wrapper {ms['v1 wrapper']:.4f} ms (CUDA events, the "
-          f"least of two turns each); twin {twin_ms:.4f} ms, knn.nn_1 {xla_ms:.4f} ms (it picks "
+    print(f"  {name}: alone {ms['alone']:.4f} ms, with wrapper {ms['wrapper']:.4f} ms (CUDA "
+          f"events, the least of two turns each); twin {twin_ms:.4f} ms, knn.nn_1 {xla_ms:.4f} ms (it picks "
           f"the same index for {agree:.6f} of queries); main grid {grid[0]} query tiles x "
-          f"{grid[1]} target splits = {grid[0] * grid[1]} blocks; a call puts {new_prof[0]} "
-          f"kernels + {new_prof[1]} memsets on the card; device ms (torch.profiler) "
-          f"{ {k: round(v, 6) for k, v in {**old_prof[2], **new_prof[2]}.items()} }; bound "
-          f"{bound[0]:.6f} ms ({bound[1]}), reached {bound[0] / ms['alone']:.4f} (first design "
-          f"{bound[0] / ms['v1 alone']:.4f})"
+          f"{grid[1]} target splits = {grid[0] * grid[1]} blocks; a call puts {prof[0]} "
+          f"kernels + {prof[1]} memsets on the card; device ms (torch.profiler) "
+          f"{ {k: round(v, 6) for k, v in prof[2].items()} }; bound "
+          f"{bound[0]:.6f} ms ({bound[1]}), reached {bound[0] / ms['alone']:.4f}"
           + (f"; torch.cdist(q, t).min(1) {lib_ms:.4f} ms" if library else "") + f"; card {smi}")
     return {"err": err, "ms": ms["alone"], "plain_ms": twin_ms, "bound": bound,
-            "library_ms": lib_ms, "wrapper_ms": ms["wrapper"], "v1_ms": ms["v1 alone"]}
+            "library_ms": lib_ms, "wrapper_ms": ms["wrapper"]}
 
 
 def wire_lines(name: str, paths: list, load, dev: torch.device, smi: str) -> list[dict]:
     """The BEV pipelines' wire, one loader batch of 8 at a time, as the
     pipelines batch ``paths`` (the last batch padded with its last cloud):
-    ``bench.wire_transfer``, the narrow pinned wire and, in turns, the wide
-    pageable one on the same batch.  A line a batch, then their medians."""
+    ``bench.wire_transfer``, the narrow pinned wire.  A line a batch, then
+    their medians."""
     from pctpu_torch.experiments.bench import wire_transfer
     from pctpu_torch.runtime.loader import stack_batch
 
@@ -793,18 +708,14 @@ def wire_lines(name: str, paths: list, load, dev: torch.device, smi: str) -> lis
                                  f"{w['transfer_mb_up']} MB up for {slots} slots")
         print(f"  {name} wire, batch {k // 8}: up {w['transfer_mb_up']:.6f} MB in "
               f"{w['transfer_up_ms']:.4f} ms, back {w['transfer_mb_back']:.6f} MB in "
-              f"{w['transfer_back_ms']:.4f} ms, pinned {w['transfer_pinned']}; wide pageable "
-              f"{w['wide_transfer_mb_per_batch'] / 2:.6f} MB each way, up "
-              f"{w['wide_transfer_up_ms']:.4f} ms, back {w['wide_transfer_back_ms']:.4f} ms "
-              f"(host clock, the least of two turns each); card {smi}")
+              f"{w['transfer_back_ms']:.4f} ms, pinned {w['transfer_pinned']} (host clock, the "
+              f"least of two turns); card {smi}")
         out.append(w)
     med = {k: float(np.median([w[k] for w in out])) for k in
-           ("transfer_ms_per_batch", "wide_transfer_ms_per_batch", "transfer_mb_per_batch",
-            "wide_transfer_mb_per_batch")}
+           ("transfer_ms_per_batch", "transfer_mb_per_batch")}
     print(f"{name} wire over {len(out)} batches of 8, medians: narrow pinned "
-          f"{med['transfer_mb_per_batch']:.6f} MB in {med['transfer_ms_per_batch']:.4f} ms, wide "
-          f"pageable {med['wide_transfer_mb_per_batch']:.6f} MB in "
-          f"{med['wide_transfer_ms_per_batch']:.4f} ms (up + back); card {smi}")
+          f"{med['transfer_mb_per_batch']:.6f} MB in {med['transfer_ms_per_batch']:.4f} ms "
+          f"(up + back); card {smi}")
     return out
 
 
@@ -819,7 +730,7 @@ def multi_bev_phase(dev: torch.device, smi: str, n_ordered: int = 64, ptxas: dic
     from pctpu_torch.experiments.scene import multi_bev_tree
     from pctpu_torch.io.pcd import read_pcd
     from pctpu_torch.io.png import read_gray_png
-    from pctpu_torch.ops import _cuda, bev, ground, preprocess, voxel
+    from pctpu_torch.ops import _cuda, ground
     from pctpu_torch.ops.preprocess import _reorder_preordered, preprocess_batch
     from pctpu_torch.pipelines import multi_bev
     from pctpu_torch.runtime import native_io
@@ -852,54 +763,10 @@ def multi_bev_phase(dev: torch.device, smi: str, n_ordered: int = 64, ptxas: dic
     largest = sums["bound"]["longest"]
     raster = raster_case(labeled, params, smi, ptxas or {})
 
-    def with_walk(fn):
-        """``fn()`` with the sector sums taken by the first design's walk."""
-        real = ground.segment_sum_sorted
-        ground.segment_sum_sorted = lambda *a, count_as=None, **k: voxel.segment_sum_walk(*a, **k)
-        try:
-            return fn()
-        finally:
-            ground.segment_sum_sorted = real
-
-    def with_raster_v1(fn):
-        """``fn()`` with both rasters taken by the first design's kernels."""
-        real = preprocess.fused_multi_single_bev
-        preprocess.fused_multi_single_bev = bev.fused_multi_single_bev_v1
-        try:
-            return fn()
-        finally:
-            preprocess.fused_multi_single_bev = real
-
     for compat in ("bitexact", "tolerance"):
         def step(compat=compat):
             return preprocess_batch(clouds, params, assume_ordered=True, compat=compat)
         dev_ms = cuda_ms(step, reps=10)
-        if compat == "bitexact":
-            # the same batch with the walk in the sums' place, in turns
-            walk_ms = [with_walk(lambda: cuda_ms(step, reps=10)) for _ in range(2)]
-            dev_ms = min(dev_ms, cuda_ms(step, reps=10))
-            by_walk, by_tile = with_walk(step), step()
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(by_walk[1:], by_tile[1:])):
-                raise AssertionError("preprocess_batch: the walk and the tile kernel disagree")
-            print(f"  preprocess_batch B = 8 (bitexact) with the walk kernel for the sector sums: "
-                  f"{min(walk_ms):.4f} ms; with the tile kernel {dev_ms:.4f} ms (CUDA events, the "
-                  f"least of two each, in turns); card {smi}")
-            # and with the first design's raster kernels in the rasters' place
-            _cuda.reset_launch_counts()
-            turns = {"new": [], "v1": []}
-            for k in ("new", "v1", "v1", "new"):
-                turns[k].append(cuda_ms(step, reps=10) if k == "new"
-                                else with_raster_v1(lambda: cuda_ms(step, reps=10)))
-            by_v1, by_new = with_raster_v1(step), step()
-            torch.cuda.synchronize()
-            require_launched(_cuda.launch_counts, ("bev_raster", "bev_raster_v1"),
-                             "preprocess_batch in turns")
-            if not all(torch.equal(a, b) for a, b in zip(by_v1[1:], by_new[1:])):
-                raise AssertionError("preprocess_batch: the two raster designs disagree")
-            print(f"  preprocess_batch B = 8 (bitexact) with the first design's raster kernels: "
-                  f"{min(turns['v1']):.4f} ms; with the new ones {min(turns['new']):.4f} ms (CUDA "
-                  f"events, the least of two each, in turns); card {smi}")
         _, multi, single = step()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -911,7 +778,7 @@ def multi_bev_phase(dev: torch.device, smi: str, n_ordered: int = 64, ptxas: dic
               f"{kernels} kernels + {copies} copies/memsets per batch; multi BEV to the host "
               f"({multi.numel() / 1e6:.2f} MB) {d2h_ms:.4f} ms; card {smi}")
 
-    # --- 9w. the wire of every loader batch, narrow pinned against wide ----
+    # --- 9w. the wire of every loader batch ---------------------------------
     wire_lines("batch_multi_bev_gen", paths,
                lambda p: load_xyzirct_arrays(p, params.grid_size, params=params), dev, smi)
 
@@ -1044,7 +911,7 @@ def multi_bev_phase(dev: torch.device, smi: str, n_ordered: int = 64, ptxas: dic
          "replaces": "pctpu/ops/bev.py:95", "launches": bev_launches,
          "max_abs_err": raster["err"], "ms": raster["ms"], "plain_ms": raster["plain_ms"],
          "bound_ms": raster["bound"][0], "bound_by": raster["bound"][1], "library_ms": None,
-         "wrapper_ms": raster["wrapper_ms"], "v1_wrapper_ms": raster["v1_wrapper_ms"]},
+         "wrapper_ms": raster["wrapper_ms"]},
         sums_entry("ground_sums", "pctpu/ops/ground.py:113", sums_launches, sums),
     ]
 
@@ -1195,10 +1062,6 @@ def cloud_manip_phase(dev: torch.device, smi: str, n_ordered: int = 29) -> dict:
     t0 = time.perf_counter()
     fields = _to_host([{**_wire(labeled), "bev": bevs}])
     back_ms = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    [getattr(labeled, f).cpu() for f in ("xyz", "intensity", "row", "col", "t", "label")]
-    bevs.cpu()
-    wide_ms = (time.perf_counter() - t0) * 1e3
     bevs_h = fields["bev"]
     stage_ms = {"CSV": 0.0, "PNG": 0.0, "labeled PCD": 0.0}
     for b in range(8):
@@ -1216,8 +1079,7 @@ def cloud_manip_phase(dev: torch.device, smi: str, n_ordered: int = 29) -> dict:
             stage_ms[k] += dt * 1e3 / 8
     print(f"  host split a cloud (B = 8, this host): load {load_ms:.4f} ms (the producer "
           f"thread's, outside [TIME]); results back {back_ms / 8:.4f} ms ({back_ms:.4f} a "
-          f"batch, narrowed on the card, pinned, one synchronize; the wide pageable copies "
-          f"{wide_ms:.4f} a batch); " + ", ".join(f"{k} {v:.4f} ms" for k, v in stage_ms.items())
+          f"batch, narrowed on the card, pinned, one synchronize); " + ", ".join(f"{k} {v:.4f} ms" for k, v in stage_ms.items())
           + f"; card {smi}")
 
     # --- 11c. the card's tree against the port's CPU run on 4 clouds -------
@@ -1589,18 +1451,15 @@ def run_logged(fn, *args):
     return out, captured.getvalue()
 
 
-def pair_batched_phase(dev: torch.device, smi: str, capacity: int = 65536) -> tuple[dict, dict]:
+def pair_batched_phase(dev: torch.device, smi: str, capacity: int = 65536) -> dict:
     """Phase 10 (module docstring).  Returns the launch counts of the
-    top-part CLI's run at ``--pair-batch=16`` (the path's run) and, on a
-    card, of the same run with the ICP's batched pass swapped for the first
-    warp design's (``nn_1_pruned_batched_v1``), whose pairs must be bit-equal
-    to the path's."""
+    top-part CLI's run at ``--pair-batch=16`` (the path's run)."""
     from torch.profiler import ProfilerActivity, profile
 
     from pctpu_torch.cli import batch_top_part_registration as top_cli
     from pctpu_torch.cli import batch_whole_registration as whole_cli
     from pctpu_torch.experiments.scene import TREE_PAIRS_20, TREE_POSES, registration_tree
-    from pctpu_torch.ops import _cuda, cuda_knn, icp
+    from pctpu_torch.ops import _cuda
     from pctpu_torch.pipelines import registration
     from pctpu_torch.runtime import profiler
 
@@ -1613,8 +1472,7 @@ def pair_batched_phase(dev: torch.device, smi: str, capacity: int = 65536) -> tu
     chunks = [min(16, n - k) for k in range(0, n, 16)]
     specs, whole_calls, seq_fine = [], [], []
     real = {"spec": registration.BucketSpec, "whole": registration.register_whole_pairs,
-            "icp": registration.icp_point_to_point, "top": top_cli.run_batch_top_part_registration,
-            "pass": icp.nn_1_pruned_batched}
+            "icp": registration.icp_point_to_point, "top": top_cli.run_batch_top_part_registration}
 
     class Spec(real["spec"]):
         def __init__(self):
@@ -1683,15 +1541,6 @@ def pair_batched_phase(dev: torch.device, smi: str, capacity: int = 65536) -> tu
                 if (kind, batch) not in results or wall < results[kind, batch]["wall"]:
                     results[kind, batch] = {"wall": wall, "launches": launches, "log": log,
                                             "pairs": pairs, "report": report}
-        # the first warp design on the same path: the ICP's batched pass
-        # swapped for it (it has no CPU mode, so a CPU rehearsal skips this)
-        first = None
-        if dev.type == "cuda":
-            icp.nn_1_pruned_batched = cuda_knn.nn_1_pruned_batched_v1
-            try:
-                first = run("top", 16, tag="v1")
-            finally:
-                icp.nn_1_pruned_batched = real["pass"]
         # untimed: host syncs (torch's sync debug mode), ICP iterations and
         # every kernel the card ran (torch.profiler)
         counted = {}
@@ -1727,27 +1576,6 @@ def pair_batched_phase(dev: torch.device, smi: str, capacity: int = 65536) -> tu
 
     def relative(q_i: int, m_i: int) -> np.ndarray:
         return TREE_POSES[m_i] @ np.linalg.inv(TREE_POSES[q_i])
-
-    first_launches = {}
-    if first is not None:
-        wall, first_launches, _, pairs, report = first
-        require_launched(first_launches, ("nn_pruned_batched_v1",), "the top-part CLI at "
-                         "--pair-batch=16 on the first warp design")
-        want = results["top", 16]["pairs"]
-        same = all(a[0] == b[0] and a[1] == b[1] and np.array_equal(
-            np.asarray(a[2]).view(np.uint32), np.asarray(b[2]).view(np.uint32))
-            for a, b in zip(pairs, want))
-        if first_launches.get("nn_pruned_batched") or len(pairs) != n or not same:
-            raise AssertionError("the top-part CLI at --pair-batch=16 on the first warp design: "
-                                 f"pairs differ from the work-list design's, or launches "
-                                 f"{nonzero(first_launches)}")
-        lines = [open(r).read().splitlines() for r in (report, results["top", 16]["report"])]
-        print(f"batch_top_part_registration --pair-batch=16 on the first warp design (ICP's "
-              f"batched pass nn_1_pruned_batched_v1): {n} pairs in {wall:.3f} s = "
-              f"{n / wall:.4f} pairs/s (one untimed-order run, after the turns); successes, "
-              f"fitnesses and transforms bit-equal to the work-list design's, "
-              f"{sum(a == b for a, b in zip(*lines))} of {len(lines[0])} report lines "
-              f"byte-equal; launches {nonzero(first_launches)}; card {smi}")
 
     for kind in ("top", "whole"):
         one, many = results[kind, 1], results[kind, 16]
@@ -1792,7 +1620,7 @@ def pair_batched_phase(dev: torch.device, smi: str, capacity: int = 65536) -> tu
               + (f"; BucketSpec hits {specs[-1].hits}, misses {specs[-1].misses} in one run "
                  f"of {len(chunks)} batches" if kind == "top" and specs else ""))
     shutil.rmtree(tree)
-    return results["top", 16]["launches"], first_launches
+    return results["top", 16]["launches"]
 
 
 CAMPAIGN_ARGV = ["--start=3000000", "--cases=20", "--sensors", "--native=50", "--adversarial=6",
@@ -2362,8 +2190,7 @@ BENCH_DETAILS_KEYS = (
     "pipeline_bev_write_ms_per_cloud", "pipeline_serial_sum_ms_per_cloud",
     "pipeline_write_overlap_hidden_pct", "transfer_ms_per_batch", "transfer_mb_per_batch",
     "transfer_up_ms", "transfer_back_ms", "transfer_mb_up", "transfer_mb_back", "transfer_pinned",
-    "wide_transfer_ms_per_batch", "wide_transfer_mb_per_batch", "wide_transfer_up_ms",
-    "wide_transfer_back_ms", "vs_baseline_interval", "vs_baseline_full_span_interval",
+    "vs_baseline_interval", "vs_baseline_full_span_interval",
     "baseline_ms_spread", "utilization", "verify")
 BENCH_KERNELS = ("bev_raster", "ground_sums", "nn_pruned", "nn_prep_batched",
                  "nn_pruned_batched", "segment_sum4")
@@ -2432,11 +2259,7 @@ def bench_phase(dev: torch.device, smi: str) -> collections.Counter:
         raise AssertionError("bench_torch: the span's copy back was not pinned")
     print(f"16a the span's loader batch of 8: up {details['transfer_mb_up']:.6f} MB in "
           f"{details['transfer_up_ms']:.4f} ms, back {details['transfer_mb_back']:.6f} MB in "
-          f"{details['transfer_back_ms']:.4f} ms, pinned; wide pageable "
-          f"{details['wide_transfer_mb_per_batch']:.6f} MB in "
-          f"{details['wide_transfer_ms_per_batch']:.4f} ms (up "
-          f"{details['wide_transfer_up_ms']:.4f}, back {details['wide_transfer_back_ms']:.4f}); "
-          f"card {smi}")
+          f"{details['transfer_back_ms']:.4f} ms, pinned; card {smi}")
     print(json.dumps(line))
     print(json.dumps(details))
 
@@ -2581,10 +2404,9 @@ def main() -> int:
         (f"{big_t.shape[0]} targets, no thr", (big_q, big_qm, big_t, big_tm), None),
         (f"{big_t.shape[0]} targets, thr 2 m", (big_q, big_qm, big_t, big_tm), 2.0),
     ]
-    print("bbox-pruned 1-NN (K1/K2): the warp design (csrc/nn_pruned_warp.cu), K4's "
-          "<128, 1024, prod> instance (csrc/nn_variant.cu) and the earlier block design (its "
-          "first design, csrc/nn_pruned.cu) against the twin, bit for bit; ms per pass "
-          f"(CUDA events); card {smi}")
+    print("bbox-pruned 1-NN (K1/K2): the warp design (csrc/nn_pruned_warp.cu) and K4's "
+          "<128, 1024, prod> instance (csrc/nn_variant.cu) against the twin, bit for bit; ms "
+          f"per pass (CUDA events); card {smi}")
     nn_err = prep_err = 0.0
     nn_ms = {}
     for name, args, md in nn_cases:
@@ -2646,8 +2468,7 @@ def main() -> int:
                                      [m @ g for m in moves for g in (np.eye(4), flip)]), ones)
     b_ct, b_ctm = sorted_batch(moved(flat_t.expand(16, -1, -1), moves), ones)
     print("bbox-pruned 1-NN over a problem axis (csrc/nn_pruned_warp.cu: one prep launch for "
-          "the targets, one pass of a memset and 3 launches for all problems; the first warp "
-          "design's pass, 3 launches with a dense main grid, beside it)")
+          "the targets, one pass of a memset and 3 launches for all problems)")
     batched_fine = batched_nn_case("batched fine thr 1 m", b_fq, b_fqm, b_ft, b_ftm, 1.0, smi,
                                    library=True)
     batched_coarse = batched_nn_case("batched coarse thr 10 m", b_cq, b_cqm, b_ct, b_ctm, 10.0, smi)
@@ -2801,16 +2622,14 @@ def main() -> int:
     torch.cuda.synchronize()
     fused_launches = _cuda.launch_counts["nn_fused"]
     require_launched({"nn_fused": fused_launches}, ("nn_fused",), "the nn_1_fused call")
-    print("fused 1-NN (K3): the new kernels (csrc/nn_fused.cu: prep, main grid of query tiles x "
-          "target splits, finish) and the first design's kernel against the twin, bit for bit; "
-          "ms per pass (CUDA events)")
+    print("fused 1-NN (K3): the kernels (csrc/nn_fused.cu: prep, main grid of query tiles x "
+          "target splits, finish) against the twin, bit for bit; ms per pass (CUDA events)")
     fused = [fused_case(name, args, smi, got=fused_out if k == 0 else None, library=k < 2)
              for k, (name, args) in enumerate(fused_cases)]
     fused_err = max(c["err"] for c in fused)
     for name, args in fused_edge_cases(dev):
         want = cuda_knn.nn_1_fused_reference(*args)
         fused_err = max(fused_err, compare(name, cuda_knn.nn_1_fused(*args), want))
-        compare(f"{name}: first design", cuda_knn.nn_1_fused_v1(*args), want)
         for splits in (1, 3, 1 << 15):  # one split, ragged splits, one a tile
             launch, idx, _ = cuda_knn._fused_launcher(*args, splits=splits)
             launch()
@@ -2823,7 +2642,7 @@ def main() -> int:
     exp = nn_argmin.run(["--quick"])
     torch.cuda.synchronize()
     variant_launches = {k: _cuda.launch_counts[k]
-                        for k in ("nn_variant", "nn_variant_prep", "nn_variant_v1")}
+                        for k in ("nn_variant", "nn_variant_prep")}
     require_launched(variant_launches, tuple(variant_launches), "nn_argmin --quick")
     shapes = {(v["mode"], v["tq"], v["tt"]) for v in exp["variants"]}
     missing = {(m, 256, 1024) for m in nn_argmin.ALL_MODES} | {
@@ -2832,8 +2651,7 @@ def main() -> int:
         raise AssertionError(f"nn_argmin skipped {sorted(missing - shapes)}")
     by_key = {v["key"]: v for v in exp["variants"]}
     anchor, k1 = by_key["prod_thr"], by_key["prod_op_thr"]
-    # the new design's prep at every compiled (tt, bf16), on the fine pass's
-    # target
+    # the prep at every compiled (tt, bf16), on the fine pass's target
     variant_prep_err = 0.0
     for tt, bf16 in sorted(cuda_knn.VARIANT_PREPS):
         got = cuda_knn.prepare_variant_target(fine_t, fine_tm, tt, bf16)
@@ -2842,26 +2660,25 @@ def main() -> int:
             f"K4 prep, tt {tt}{', bf16' if bf16 else ''}",
             [got.packed, got.group_box, got.tile_box],
             [want.packed, want.group_box, want.tile_box]))
-    print(f"nn_argmin: {len(exp['variants'])} variants, each bit-equal to its twin in the new "
-          f"design and the first; prod thr=1m (256,1024) {anchor['ms_per_pass']:.4f} ms per "
-          f"pass (kernel {anchor['kernel_ms']:.4f} ms), first design "
-          f"{anchor['v1_ms_per_pass']:.4f} (kernel {anchor['v1_kernel_ms']:.4f}); K1 "
+    print(f"nn_argmin: {len(exp['variants'])} variants, each bit-equal to its twin; prod "
+          f"thr=1m (256,1024) {anchor['ms_per_pass']:.4f} ms per pass (kernel "
+          f"{anchor['kernel_ms']:.4f} ms); K1 "
           f"{k1['ms_per_pass']:.4f} (kernel {k1['kernel_ms']:.4f}); twin "
           f"{exp['twin_ms']:.4f} ms; launches {variant_launches}; card {smi}")
     for name, line in ptxas.items():
-        if name.startswith(("nn_variant", "nn_pruned_kernel")):
+        if name.startswith("nn_variant"):
             print(f"  ptxas {name}: {line}")
     spilled = [n for n, line in ptxas.items() if n.startswith("nn_variant")
                and not line.endswith("spill stores 0 B, loads 0 B")]
     if spilled or not any(n.startswith("nn_variant_main_kernel") for n in ptxas):
-        raise AssertionError(f"K4's new kernels spill or are missing from ptxas's report: "
+        raise AssertionError(f"K4's kernels spill or are missing from ptxas's report: "
                              f"{spilled}")
 
     # --- 9. batch_multi_bev_gen ----------------------------------------------
     bev_kernels = multi_bev_phase(dev, smi, ptxas=ptxas, clock_mhz=clock_mhz)
 
     # --- 10. pair-batched registration ---------------------------------------
-    batched_launches, v1_launches = pair_batched_phase(dev, smi)
+    batched_launches = pair_batched_phase(dev, smi)
 
     # --- 11. batch_cloud_manip and cloud_manip -------------------------------
     cloud_manip_phase(dev, smi)
@@ -2910,20 +2727,10 @@ def main() -> int:
          "bound_by": batched_fine["bound_by"], "library_ms": batched_fine["library_ms"],
          "unbatched_ms": batched_fine["unbatched_ms"], "coarse_ms": batched_coarse["ms"],
          "coarse_unbatched_ms": batched_coarse["unbatched_ms"],
-         "wrapper_ms": batched_fine["wrapper_ms"], "v1_ms": batched_fine["v1_ms"],
-         "coarse_v1_ms": batched_coarse["v1_ms"], "items": batched_fine["items"],
+         "wrapper_ms": batched_fine["wrapper_ms"], "items": batched_fine["items"],
          "dense_blocks": batched_fine["dense_blocks"],
          "coarse_items": batched_coarse["items"],
          "coarse_dense_blocks": batched_coarse["dense_blocks"]},
-        {"name": "nn_pruned_batched_v1", "route": "cuda",
-         "source": "pctpu_torch/csrc/nn_pruned_warp.cu",
-         "replaces": "pctpu/ops/pallas_knn.py:275",
-         "launches": v1_launches["nn_pruned_batched_v1"],
-         "max_abs_err": max(batched_fine["v1_err"], batched_coarse["v1_err"]),
-         "ms": batched_fine["v1_ms"], "plain_ms": batched_fine["plain_ms"],
-         "bound_ms": batched_fine["bound"], "bound_by": batched_fine["bound_by"],
-         "library_ms": batched_fine["library_ms"], "wrapper_ms": batched_fine["v1_wrapper_ms"],
-         "coarse_ms": batched_coarse["v1_ms"], "design": "first (dense main grid), kept"},
         {"name": "nn_prep_batched", "route": "cuda",
          "source": "pctpu_torch/csrc/nn_pruned_warp.cu",
          "replaces": "pctpu/ops/pallas_knn.py:275", "launches": batched_launches["nn_prep_batched"],
@@ -2938,16 +2745,13 @@ def main() -> int:
          "replaces": "pctpu/ops/pallas_knn.py:38", "launches": fused_launches,
          "max_abs_err": fused_err, "ms": big_fused["ms"], "plain_ms": big_fused["plain_ms"],
          "bound_ms": big_fused["bound"][0], "bound_by": big_fused["bound"][1],
-         "library_ms": big_fused["library_ms"], "wrapper_ms": big_fused["wrapper_ms"],
-         "v1_ms": big_fused["v1_ms"]},
+         "library_ms": big_fused["library_ms"], "wrapper_ms": big_fused["wrapper_ms"]},
         {"name": "nn_variant", "route": "cuda", "source": "pctpu_torch/csrc/nn_variant.cu",
          "replaces": "scripts/exp_nn_argmin.py:118", "launches": variant_launches["nn_variant"],
          "max_abs_err": max(exp["max_abs_err"], nn_err), "ms": fine["variant_alone"],
          "plain_ms": fine["twin"], "bound_ms": fine["bound"], "bound_by": fine["bound_by"],
          "library_ms": fine["library"], "wrapper_ms": fine["variant_wrapper"],
-         "v1_ms": fine["old_alone"], "v1_wrapper_ms": fine["old_wrapper"],
-         "v1_launches": variant_launches["nn_variant_v1"], "k1_ms": fine["alone"],
-         "fitness_ms": fit["variant_alone"], "fitness_v1_ms": fit["old_alone"],
+         "k1_ms": fine["alone"], "fitness_ms": fit["variant_alone"],
          "fitness_plain_ms": fit["twin"], "fitness_bound_ms": fit["bound"],
          "fitness_bound_by": fit["bound_by"], "fitness_library_ms": fit["library"],
          "fitness_k1_ms": fit["alone"]},

@@ -44,12 +44,6 @@
 //     they are copied to the host.  When S² is no multiple of 16 the rows of
 //     the rasters are not 16-byte aligned, and the same threads write bytes.
 //
-// The first design's kernels (one thread a point over the whole batch with a
-// 64-bit division and two atomics a point; one thread a cell writing 25
-// single bytes; two scratch tensors zeroed by the wrapper) stay below as
-// pctpu_bev_raster_v1, so that old, new and twin can be held and timed in
-// one call.
-//
 // The index arithmetic is pctpu's, written with __f*_rn intrinsics so nvcc
 // contracts nothing, and with cvt.rzi (saturating, NaN -> 0) for every
 // f32 -> int32, which is XLA's astype(int32).
@@ -177,42 +171,6 @@ bev_expand_kernel(const unsigned* __restrict__ words, int s, int nl,
   }
 }
 
-// ---- the first design ------------------------------------------------------
-
-__global__ void bev_raster_v1_kernel(const float* __restrict__ xyz,
-                                     const int32_t* __restrict__ label,
-                                     const int64_t* __restrict__ count, int64_t b,
-                                     int64_t p, Grid g, unsigned* __restrict__ occ,
-                                     int* __restrict__ hgt,
-                                     unsigned long long* __restrict__ counter) {
-  const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (i >= b * p) return;
-  const int64_t cloud = i / p;
-  if (i - cloud * p >= count[cloud] || label[i] == 0) return;
-  int height = 0;
-  unsigned bit = 0;
-  const int in_cloud = bev_point(xyz[3 * i], xyz[3 * i + 1], xyz[3 * i + 2], g, &height, &bit);
-  if (in_cloud < 0) return;
-  const int64_t cell = cloud * (int64_t)g.s * g.s + in_cloud;
-  if (height > 0) atomicMax(&hgt[cell], height);
-  if (bit) atomicOr(&occ[cell], bit);
-  if (counter) atomicAdd(counter, (unsigned long long)((height > 0) + (bit != 0)));
-}
-
-__global__ void bev_expand_v1_kernel(const unsigned* __restrict__ occ,
-                                     const int* __restrict__ hgt, int64_t b, int s,
-                                     int nl, uint8_t* __restrict__ multi,
-                                     uint8_t* __restrict__ single) {
-  const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  const int64_t cells = (int64_t)s * s;
-  if (i >= b * cells) return;
-  const int64_t cloud = i / cells, cell = i - cloud * cells;
-  const unsigned bits = occ[i];
-  uint8_t* out = multi + cloud * nl * cells + cell;
-  for (int l = 0; l < nl; ++l) out[l * cells] = (bits >> l) & 1u ? 255 : 0;
-  single[i] = (uint8_t)hgt[i];
-}
-
 bool grid_ok(int64_t b, int64_t p, int s, int nl) {
   return b > 0 && b <= 65535 && p > 0 && s > 0 && nl > 0 && nl <= 32;
 }
@@ -244,25 +202,6 @@ int pctpu_bev_raster(const float* xyz, const int32_t* label, const int64_t* coun
   const dim3 cell_blocks((unsigned)((cells + per_block - 1) / per_block), (unsigned)b);
   bev_expand_kernel<<<cell_blocks, kThreads, 0, st>>>(
       reinterpret_cast<const unsigned*>(words), s, nl, multi, single);
-  return (int)cudaGetLastError();
-}
-
-// The first design.  occ and hgt (b * s * s int32 each) must be zero on entry.
-int pctpu_bev_raster_v1(const float* xyz, const int32_t* label, const int64_t* count,
-                        int64_t b, int64_t p, int s, int nl, float range, float interval,
-                        float height_res, float layer_offset, float height_offset,
-                        float height_scale, int* occ, int* hgt, uint8_t* multi,
-                        uint8_t* single, unsigned long long* counter, void* stream) {
-  if (!grid_ok(b, p, s, nl)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const Grid g{s, nl, range, interval, height_res, layer_offset, height_offset, height_scale};
-  bev_raster_v1_kernel<<<(unsigned)((b * p + kThreads - 1) / kThreads), kThreads, 0, st>>>(
-      xyz, label, count, b, p, g, reinterpret_cast<unsigned*>(occ), hgt, counter);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int64_t cells = b * (int64_t)s * s;
-  bev_expand_v1_kernel<<<(unsigned)((cells + kThreads - 1) / kThreads), kThreads, 0, st>>>(
-      reinterpret_cast<const unsigned*>(occ), hgt, b, s, nl, multi, single);
   return (int)cudaGetLastError();
 }
 

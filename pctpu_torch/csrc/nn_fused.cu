@@ -35,10 +35,10 @@
 //     query's key to all ones.  At 65,536 targets the packed target is 1 MB
 //     and stays in the L2 cache for the main kernel.
 //   nn_fused_main_kernel: a 2-D grid, query tile × target split, so that the
-//     card is full at any Q (the first design's one block a 256 queries left
-//     half the SMs idle at Q = 16,384).  A block of 128 threads holds 512
-//     queries, four a thread in registers, so one 16-byte broadcast load from
-//     shared memory serves four pairs.  Target tiles of 512 points come in
+//     card is full at any Q (one block a 256 queries, with every target
+//     scanned by every block, left half the SMs idle at Q = 16,384).  A
+//     block of 128 threads holds 512 queries, four a thread in registers, so
+//     one 16-byte broadcast load from shared memory serves four pairs.  Target tiles of 512 points come in
 //     with cp.async through a ring of three, so the copy of tile k + 2 runs
 //     under the scan of tile k; one __syncthreads a tile.  The inner loop keeps
 //     only the minimum's value (one fminf a pair; fminf drops a NaN) and, for
@@ -51,11 +51,6 @@
 //     scores the lower index wins, which is the first minimum.  A split whose
 //     minimum stayed at 3e38 writes nothing, so such a query ends at index 0.
 //   nn_fused_finish_kernel: key -> index (all ones -> 0).
-//
-// The first design (one thread a query, 256 queries a block, every target
-// staged and scanned by every block, a compare and two selects a pair) stays
-// below as pctpu_nn_fused_v1, so that old, new and twin can be held and timed
-// in one call.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -191,56 +186,6 @@ __global__ void nn_fused_finish_kernel(const unsigned long long* __restrict__ ke
   if (i < nq) out_idx[i] = keys[i] == kNoKey ? 0 : (int32_t)(keys[i] & 0xffffffffull);
 }
 
-// ---- the first design ------------------------------------------------------
-
-constexpr int kTQ = 256;
-constexpr int kTT = 2048;
-
-__global__ void __launch_bounds__(kTQ)
-nn_fused_v1_kernel(const float* __restrict__ q, int64_t nq,
-                   const float* __restrict__ t, const uint8_t* __restrict__ tmask,
-                   int64_t nt, float* __restrict__ out_val,
-                   int32_t* __restrict__ out_idx) {
-  __shared__ float4 tile[kTT];
-
-  const int64_t qi = (int64_t)blockIdx.x * kTQ + threadIdx.x;
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (qi < nq) {
-    qx = q[3 * qi];
-    qy = q[3 * qi + 1];
-    qz = q[3 * qi + 2];
-  }
-  float best = kBig;
-  int32_t best_j = 0;
-
-  for (int64_t base = 0; base < nt; base += kTT) {
-    __syncthreads();  // every thread is done with the previous tile
-    for (int k = threadIdx.x; k < kTT; k += kTQ) {
-      const int64_t g = base + k;
-      float4 v = make_float4(0.f, 0.f, 0.f, kBig);
-      if (g < nt) {
-        const float x = t[3 * g], y = t[3 * g + 1], z = t[3 * g + 2];
-        const float sq = __fmaf_rn(z, z, __fmaf_rn(y, y, __fmul_rn(x, x)));
-        v = make_float4(x, y, z, tmask[g] ? sq : kBig);
-      }
-      tile[k] = v;
-    }
-    __syncthreads();
-    const int n_here = (int)min((int64_t)kTT, nt - base);
-    for (int k = 0; k < n_here; ++k) {
-      const float score = score_of(qx, qy, qz, tile[k]);
-      if (score < best) {
-        best = score;
-        best_j = (int32_t)(base + k);
-      }
-    }
-  }
-  if (qi < nq) {
-    out_val[qi] = best;
-    out_idx[qi] = best_j;
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -301,16 +246,6 @@ int pctpu_nn_fused(const float* q, int64_t nq, const float* t, const uint8_t* tm
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   nn_fused_finish_kernel<<<(unsigned)((nq + 255) / 256), 256, 0, st>>>(keys, nq, out_idx);
-  return (int)cudaGetLastError();
-}
-
-// The first design: one launch.
-int pctpu_nn_fused_v1(const float* q, int64_t nq, const float* t, const uint8_t* tmask,
-                      int64_t nt, float* out_val, int32_t* out_idx, void* stream) {
-  if (nq <= 0 || nt <= 0) return (int)cudaErrorInvalidValue;
-  const int64_t blocks = (nq + kTQ - 1) / kTQ;
-  nn_fused_v1_kernel<<<(unsigned)blocks, kTQ, 0, (cudaStream_t)stream>>>(
-      q, nq, t, tmask, nt, out_val, out_idx);
   return (int)cudaGetLastError();
 }
 

@@ -54,12 +54,11 @@
 //     critical path is one item, not the busiest warp's walk over the target.
 //   nn_finish_kernel: each key to the contract's (index int32, d² f32).
 //
-// The list holds exactly the (problem, query warp, tile) blocks of the first
-// warp design's dense grid (kept below as nn_seed_v1_kernel /
-// nn_main_v1_kernel, entry pctpu_nn_pruned_batched_v1) that pass its first
-// test, the tile's gap against the seed's bound: the dense grid launched all
-// of them (384 × 48 × 16 blocks of four warps for 16 problems of 49,152
-// points) and most returned after that one test.
+// The list holds exactly the (problem, query warp, tile) blocks that pass
+// the tile's gap against the seed's bound.  A dense grid over every such
+// block (384 × 48 × 16 blocks of four warps for 16 problems of 49,152
+// points) would launch all of them, and most would return after that one
+// test.
 //
 // Problem p reads target p / (P / Bt), so the two yaw guesses of a coarse
 // pair share their pair's prepared target.  Keys, warp boxes and outputs are
@@ -86,7 +85,6 @@ namespace {
 constexpr float kBig = 3e38f;
 constexpr int kGroup = 32;            // target points per group: one per lane
 constexpr int kTile = 1024;           // target points per tile: 32 groups
-constexpr int kWarps = 4;             // warps per block of the first design's launches
 constexpr int kSeedWarps = 8;         // warps per seed block: one list append a block
 constexpr int kMainWarps = 4;         // warps per block of the persistent main grid
 constexpr int kStages = 4;            // slices in a main warp's ring of staged groups
@@ -382,7 +380,8 @@ nn_seed_kernel(const float* __restrict__ q, const uint8_t* __restrict__ qmask, i
   }
 }
 
-// One work item of the main grid, for one warp: the dense design's block.
+// One work item of the main grid, for one warp: one (problem, query warp,
+// tile) block.
 // The live bound from the keys (relaxed loads), the tile test against it,
 // each lane's group gap, a ballot of the groups that pass; the groups are
 // staged through a ring of kStages shared-memory slices with cp.async, so
@@ -495,157 +494,6 @@ nn_main_kernel(const float* __restrict__ q, const uint8_t* __restrict__ qmask, i
   }
 }
 
-// The first warp design (its problem axis included), kept for
-// pctpu_nn_pruned_batched_v1: the seed scans every group box for its seed
-// group; the main grid is dense, one block per (4 query warps, tile,
-// problem), and a warp first tests the tile's box against the seed's bound.
-__global__ void __launch_bounds__(kWarps * 32)
-nn_seed_v1_kernel(const float* __restrict__ q, const uint8_t* __restrict__ qmask, int nq,
-                  const float4* __restrict__ tp, const float* __restrict__ gbox, int ng,
-                  int per_target, float thr2, unsigned long long* __restrict__ keys,
-                  float4* __restrict__ wbox) {
-  __shared__ __align__(16) float4 stage[kWarps][kGroup];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int qw = blockIdx.x * kWarps + warp;
-  if (qw * 32 >= nq) return;  // whole warps only
-  // this block's problem and the target it searches
-  const size_t p = blockIdx.y, tb = blockIdx.y / per_target;
-  q += p * nq * 3;
-  qmask += p * nq;
-  keys += p * nq;
-  wbox += p * 2 * ((nq + 31) / 32);
-  tp += tb * ng * kGroup;
-  gbox += tb * 8 * ng;
-  const int qi = qw * 32 + lane;
-  const Query me = load_query(q, qmask, nq, qi);
-  const float inf = inf_f();
-  if (!__any_sync(kFull, me.valid)) {  // nothing to find: every item skips it
-    if (qi < nq) keys[qi] = kInitKey;
-    if (lane == 0) {
-      wbox[2 * qw] = make_float4(kBig, kBig, kBig, -inf);
-      wbox[2 * qw + 1] = make_float4(-kBig, -kBig, -kBig, 0.f);
-    }
-    return;
-  }
-  const float4 lo = make_float4(warp_min(me.valid ? me.x : kBig),
-                                warp_min(me.valid ? me.y : kBig),
-                                warp_min(me.valid ? me.z : kBig), 0.f);
-  const float4 hi = make_float4(warp_max(me.valid ? me.x : -kBig),
-                                warp_max(me.valid ? me.y : -kBig),
-                                warp_max(me.valid ? me.z : -kBig), 0.f);
-
-  // the group with the least worst-case distance to the warp's box: lane l
-  // takes groups l, l + 32, …; ties go to the lowest group
-  float best_m = inf;
-  int best_g = 0;
-  for (int g = lane; g < ng; g += 32) {
-    const float mx = fmaxf(fabsf(__fsub_rn(hi.x, gbox[g])), fabsf(__fsub_rn(gbox[3 * ng + g], lo.x)));
-    const float my = fmaxf(fabsf(__fsub_rn(hi.y, gbox[ng + g])),
-                           fabsf(__fsub_rn(gbox[4 * ng + g], lo.y)));
-    const float mz = fmaxf(fabsf(__fsub_rn(hi.z, gbox[2 * ng + g])),
-                           fabsf(__fsub_rn(gbox[5 * ng + g], lo.z)));
-    const float m = __fmaf_rn(mz, mz, __fmaf_rn(my, my, __fmul_rn(mx, mx)));
-    if (m < best_m) {
-      best_m = m;
-      best_g = g;
-    }
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    const float om = __shfl_xor_sync(kFull, best_m, o);
-    const int og = __shfl_xor_sync(kFull, best_g, o);
-    if (om < best_m || (om == best_m && og < best_g)) {
-      best_m = om;
-      best_g = og;
-    }
-  }
-
-  const int base = best_g * kGroup;
-  stage[warp][lane] = tp[base + lane];
-  __syncwarp();
-  float best = inf;
-  int best_j = 0;
-  scan_group(stage[warp], base, me, best, best_j);
-  if (qi < nq) keys[qi] = me.valid && best < inf ? make_key(best, best_j) : kInitKey;
-  const float bound = fminf(thr2, warp_max(me.valid ? best : -inf));
-  if (lane == 0) {
-    wbox[2 * qw] = make_float4(lo.x, lo.y, lo.z, bound);
-    wbox[2 * qw + 1] = hi;
-  }
-}
-
-__global__ void __launch_bounds__(kWarps * 32)
-nn_main_v1_kernel(const float* __restrict__ q, const uint8_t* __restrict__ qmask, int nq,
-                  const float4* __restrict__ tp, const float* __restrict__ gbox, int ng,
-                  const float* __restrict__ tbox, int n_tiles, int per_target, float thr2,
-                  unsigned long long* __restrict__ keys, const float4* __restrict__ wbox) {
-  __shared__ __align__(16) float4 stage[kWarps][2][kGroup];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int qw = blockIdx.x * kWarps + warp;
-  if (qw * 32 >= nq) return;
-  const size_t p = blockIdx.z, tb = blockIdx.z / per_target;
-  q += p * nq * 3;
-  qmask += p * nq;
-  keys += p * nq;
-  wbox += p * 2 * ((nq + 31) / 32);
-  tp += tb * n_tiles * kTile;
-  gbox += tb * 8 * ng;
-  tbox += tb * 8 * n_tiles;
-  const int tile = blockIdx.y;
-  const float4 lo = wbox[2 * qw], hi = wbox[2 * qw + 1];
-  const float tgap = box_gap(lo, hi, tbox, n_tiles, tile);
-  if (!(tgap <= lo.w)) return;  // the seed's bound: no later bound is larger
-
-  // the live bound: the warp's current best distances, from the keys
-  const int qi = qw * 32 + lane;
-  const Query me = load_query(q, qmask, nq, qi);
-  const float inf = inf_f();
-  const unsigned long long key = qi < nq ? load_relaxed(keys + qi) : kInitKey;
-  const float kd = __uint_as_float((uint32_t)(key >> 32));
-  float bound = fminf(thr2, warp_max(me.valid ? kd : -inf));
-  if (!(tgap <= bound)) return;
-
-  // lane l tests group l of the tile
-  const float ggap = box_gap(lo, hi, gbox, ng, tile * 32 + lane);
-  unsigned todo = __ballot_sync(kFull, ggap <= bound);
-  if (!todo) return;
-
-  float4(*buf)[kGroup] = stage[warp];
-  const float4* tile_pts = tp + tile * kTile;
-  float best = inf;
-  int best_j = 0;
-  int cur = 0;
-  int gl = __ffs(todo) - 1;
-  todo &= todo - 1;
-  cp_async16(&buf[0][lane], tile_pts + gl * kGroup + lane);
-  cp_async_commit();
-  while (true) {
-    int gn = -1;
-    if (todo) {  // prefetch the next group into the other slice
-      gn = __ffs(todo) - 1;
-      todo &= todo - 1;
-      cp_async16(&buf[cur ^ 1][lane], tile_pts + gn * kGroup + lane);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncwarp();  // every lane's copy of this group has landed
-    // the group may have fallen behind the tightened bound meanwhile
-    if (__shfl_sync(kFull, ggap, gl) <= bound) {
-      scan_group(buf[cur], tile * kTile + gl * kGroup, me, best, best_j);
-          bound = fminf(bound, warp_max(me.valid ? fminf(kd, best) : -inf));
-    }
-    if (gn < 0) break;
-    __syncwarp();  // every lane has read this slice before it is refilled
-    gl = gn;
-    cur ^= 1;
-  }
-  if (me.valid && best < inf) {
-    const unsigned long long mine = make_key(best, best_j);
-    if (mine < key) atomicMin(keys + qi, mine);
-  }
-}
-
 __global__ void nn_finish_kernel(const uint8_t* __restrict__ qmask, int nq,
                                  const unsigned long long* __restrict__ keys, float thr2,
                                  int32_t* __restrict__ out_idx, float* __restrict__ out_d2) {
@@ -665,7 +513,7 @@ __global__ void nn_finish_kernel(const uint8_t* __restrict__ qmask, int nq,
   out_d2[i] = ok ? d : inf_f();
 }
 
-// The dense grid's validity limits, shared by both designs' entries.
+// The pass's validity limits.
 bool pass_shape_ok(int64_t n_problems, int64_t nq, int64_t n_targets, int64_t n_tiles) {
   return nq > 0 && nq <= 0x7fffff00ll && n_tiles > 0 && n_tiles <= 65535 && n_targets > 0 &&
          n_problems > 0 && n_problems <= 65535 && n_problems % n_targets == 0;
@@ -706,7 +554,7 @@ int launch_pass(const float* q, const uint8_t* qmask, int n_problems, int nq,
   // scratch: the list's count and a spare word (the warp boxes stay 16-byte
   // aligned), every problem's warp boxes (two float4 each), one key per
   // query and problem, then the list: room for every (problem, query warp,
-  // tile), the dense grid's blocks
+  // tile)
   unsigned long long* n_items = static_cast<unsigned long long*>(scratch);
   float4* wbox = reinterpret_cast<float4*>(n_items + 2);
   unsigned long long* keys =
@@ -727,35 +575,6 @@ int launch_pass(const float* q, const uint8_t* qmask, int n_problems, int nq,
   nn_main_kernel<kCount><<<blocks, kMainWarps * 32, 0, stream>>>(
       q, qmask, nq, tp, gbox, tbox, n_tiles, per_target, thr2, keys, wbox, list, n_items,
       counter);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  nn_finish_kernel<<<dim3((nq + 255) / 256, n_problems), 256, 0, stream>>>(
-      qmask, nq, keys, thr2, out_idx, out_d2);
-  return (int)cudaGetLastError();
-}
-
-// The first warp design's pass: seed
-// over every group box, then the dense main grid (4 query warps × one tile ×
-// one problem a block).
-int launch_pass_v1(const float* q, const uint8_t* qmask, int n_problems, int nq,
-                   const float4* tp, const float* gbox, const float* tbox, int n_targets,
-                   int n_tiles, float thr2, void* scratch, int32_t* out_idx, float* out_d2,
-                   cudaStream_t stream) {
-  const int n_qw = (nq + 31) / 32;
-  const int blocks = (n_qw + kWarps - 1) / kWarps;
-  const int per_target = n_problems / n_targets;
-  // scratch: every problem's warp boxes (two float4 each), then one key per
-  // query and problem
-  float4* wbox = static_cast<float4*>(scratch);
-  unsigned long long* keys =
-      reinterpret_cast<unsigned long long*>(wbox + (size_t)2 * n_qw * n_problems);
-  const int ng = n_tiles * 32;
-  nn_seed_v1_kernel<<<dim3(blocks, n_problems), kWarps * 32, 0, stream>>>(
-      q, qmask, nq, tp, gbox, ng, per_target, thr2, keys, wbox);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  nn_main_v1_kernel<<<dim3(blocks, n_tiles, n_problems), kWarps * 32, 0, stream>>>(
-      q, qmask, nq, tp, gbox, ng, tbox, n_tiles, per_target, thr2, keys, wbox);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   nn_finish_kernel<<<dim3((nq + 255) / 256, n_problems), 256, 0, stream>>>(
@@ -820,20 +639,6 @@ int pctpu_nn_pruned(const float* q, const uint8_t* qmask, int64_t nq, const void
                     void* stream) {
   return pctpu_nn_pruned_batched(q, qmask, 1, nq, tp, gbox, tbox, 1, n_tiles, thr2, scratch,
                                  out_idx, out_d2, counter, stream);
-}
-
-// pctpu_nn_pruned_batched by the first warp design (seed, dense main grid,
-// finish; no counting instance): scratch holds n_problems · (4·⌈nq / 32⌉ +
-// nq) 64-bit words.
-int pctpu_nn_pruned_batched_v1(const float* q, const uint8_t* qmask, int64_t n_problems,
-                               int64_t nq, const void* tp, const float* gbox,
-                               const float* tbox, int64_t n_targets, int64_t n_tiles,
-                               float thr2, void* scratch, int32_t* out_idx, float* out_d2,
-                               void* stream) {
-  if (!pass_shape_ok(n_problems, nq, n_targets, n_tiles)) return (int)cudaErrorInvalidValue;
-  return launch_pass_v1(q, qmask, (int)n_problems, (int)nq, static_cast<const float4*>(tp),
-                        gbox, tbox, (int)n_targets, (int)n_tiles, thr2, scratch, out_idx,
-                        out_d2, (cudaStream_t)stream);
 }
 
 }  // extern "C"

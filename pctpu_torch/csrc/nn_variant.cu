@@ -7,9 +7,7 @@
 // .kernel): pctpu's production loop kernel (pctpu/ops/pallas_knn.py:275)
 // with five argmin bodies and a sweep of (tq, tt) tile shapes.  Here each
 // variant is an instance <TQ, TT, MODE> of the warp design of
-// csrc/nn_pruned_warp.cu (K1), not of a block-wide loop; the first Hopper
-// form of these variants, one block walking every target tile, stays in
-// csrc/nn_pruned.cu as pctpu_nn_variant_v1.
+// csrc/nn_pruned_warp.cu (K1), not of a block-wide loop.
 //
 // Contract (cuda_knn.nn_1_pruned_variant, bit-equal to its twin
 // nn_1_pruned_reference, or nn_1_pruned_bf16_reference for kBf16): K1's —

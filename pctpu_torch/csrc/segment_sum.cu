@@ -44,10 +44,6 @@
 //     fetched once: by the tile of its head, or by the carry under the
 //     segment's id.  Short voxel runs cost one tile; a sector of 1,750 rows
 //     is 55 tiles.
-//   segment_sum_walk_kernel is the first design (one thread per head walks
-//     its rows, a device-memory latency a row: ≈ 135-170 ns), kept as a
-//     second entry so that both can be timed in one call and held against
-//     each other.
 //
 // What the carry costs (H100, a lone segment of 17,500 rows): ≈ 9 ns a row,
 // 17 cycles, not the 4 of its add chain — taking the adds out changes
@@ -277,25 +273,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int L>
-__global__ void segment_sum_walk_kernel(const Row<L>* __restrict__ values,
-                                        const int64_t* __restrict__ order,
-                                        const int32_t* __restrict__ seg, int64_t n,
-                                        int64_t n_out, Row<L> init, Row<L>* __restrict__ out) {
-  const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int32_t s = seg[i];
-  if (s < 0 || s >= n_out || (i > 0 && seg[i - 1] == s)) return;  // not a segment head
-  Row<L> acc = init;
-  int64_t j = i;
-  do {
-    add_row(acc, load_row(values, order ? order[j] : j));
-    ++j;
-  } while (j < n && seg[j] == s);
-  store_row(out, s, acc);
-}
-
-template <int L>
-int launch(bool walk, const float* values, const int64_t* order, const int32_t* seg,
+int launch(const float* values, const int64_t* order, const int32_t* seg,
            int64_t n, const float* init4, float* out, int64_t n_out, int fill,
            cudaStream_t stream) {
   Row<L> init;
@@ -309,21 +287,18 @@ int launch(bool walk, const float* values, const int64_t* order, const int32_t* 
     if (err != cudaSuccess) return (int)err;
   }
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  if (walk)
-    segment_sum_walk_kernel<L><<<blocks, kThreads, 0, stream>>>(v, order, seg, n, n_out, init, o);
-  else
-    segment_sum_tile_kernel<L><<<blocks, kThreads, 0, stream>>>(v, order, seg, n, n_out, init, o);
+  segment_sum_tile_kernel<L><<<blocks, kThreads, 0, stream>>>(v, order, seg, n, n_out, init, o);
   return (int)cudaGetLastError();
 }
 
-int dispatch(bool walk, const float* values, const int64_t* order, const int32_t* seg,
+int dispatch(const float* values, const int64_t* order, const int32_t* seg,
              int64_t n, int lanes, const float* init4, float* out, int64_t n_out, int fill,
              void* stream) {
   if (n <= 0 || n_out <= 0 || n >= (1ll << 31) || n_out >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (lanes == 4) return launch<4>(walk, values, order, seg, n, init4, out, n_out, fill, s);
-  if (lanes == 2) return launch<2>(walk, values, order, seg, n, init4, out, n_out, fill, s);
+  if (lanes == 4) return launch<4>(values, order, seg, n, init4, out, n_out, fill, s);
+  if (lanes == 2) return launch<2>(values, order, seg, n, init4, out, n_out, fill, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -331,7 +306,7 @@ int dispatch(bool walk, const float* values, const int64_t* order, const int32_t
 
 extern "C" {
 
-// Both return cudaGetLastError() right after the launches.  values: rows of
+// Returns cudaGetLastError() right after the launches.  values: rows of
 // `lanes` (2 or 4) floats, aligned to a row; order: n row indices or null;
 // seg: n ids; out: n_out rows; fill != 0 writes init into every row of out
 // first (without it, rows that no segment names are left as they were).
@@ -340,14 +315,7 @@ int pctpu_segment_sum(const float* values, const int64_t* order, const int32_t* 
                       int lanes, float i0, float i1, float i2, float i3, float* out,
                       int64_t n_out, int fill, void* stream) {
   const float init4[4] = {i0, i1, i2, i3};
-  return dispatch(false, values, order, seg, n, lanes, init4, out, n_out, fill, stream);
-}
-
-int pctpu_segment_sum_walk(const float* values, const int64_t* order, const int32_t* seg,
-                           int64_t n, int lanes, float i0, float i1, float i2, float i3,
-                           float* out, int64_t n_out, int fill, void* stream) {
-  const float init4[4] = {i0, i1, i2, i3};
-  return dispatch(true, values, order, seg, n, lanes, init4, out, n_out, fill, stream);
+  return dispatch(values, order, seg, n, lanes, init4, out, n_out, fill, stream);
 }
 
 }  // extern "C"

@@ -363,37 +363,20 @@ def _write_bench_tree(root: str, n_clouds: int, seed0: int, sensor="HDL_64E") ->
         f.writelines(lines)
 
 
-# the wide wire, kept beside the pipelines' narrow one for comparison: every
-# field widened on the host (36 B a slot, 8 B a cloud) and copied each way
-# pageable and blocking, one field at a time
-_WIDE = {"xyz": np.float32, "intensity": np.float32, "row": np.int32, "col": np.int32,
-         "t": np.int64, "label": np.int32, "count": np.int64}
-
-
-def to_device_wide(arrays: dict, device, rows: slice = slice(None)):
-    """The wide wire's upload: ``multi_bev._to_device``'s result, widened on
-    the host and copied pageable."""
-    from pctpu_torch.cloud import Cloud
-
-    return Cloud(**{k: torch.from_numpy(np.ascontiguousarray(arrays[k][rows], w)).to(device)
-                    for k, w in _WIDE.items()})
-
-
 def wire_transfer(arrays: dict, device="cuda") -> dict:
     """One loader batch's wire as the BEV pipelines move it: up through
     ``multi_bev._to_device`` (on-disk widths, pinned on a card, widened
     there), back through ``_to_host(_wire(...))`` (narrowed on the device,
     pinned on a card, one synchronize); each direction on the host clock,
-    the upload ended by a synchronize.  Beside it the same batch over the
-    wide wire (:func:`to_device_wide`, each field copied back blocking).  In turns (narrow, wide, wide, narrow) after
-    a warm-up of each, the least of each side's two."""
+    the upload ended by a synchronize.  After a warm-up, the least of two
+    runs."""
     from pctpu_torch.pipelines.multi_bev import _UP, _to_device, _to_host, _wire
 
     dev = torch.device(device)
 
     # each turn lets go of what it copied back, as the pipeline does once its
     # writers are done: a later turn's pinned blocks then come from the cache
-    def narrow():
+    def turn():
         t0 = time.perf_counter()
         cloud = _to_device(arrays, dev)
         _sync(dev)
@@ -403,25 +386,11 @@ def wire_transfer(arrays: dict, device="cuda") -> dict:
         return (t1 - t0, t2 - t1, sum(a.nbytes for a in host.values()),
                 torch.from_numpy(host["xyz"]).is_pinned())
 
-    def wide():
-        t0 = time.perf_counter()
-        cloud = to_device_wide(arrays, dev)
-        fields = [getattr(cloud, k) for k in _WIDE]
-        _sync(dev)
-        t1 = time.perf_counter()
-        back = [x.cpu() for x in fields]
-        t2 = time.perf_counter()
-        return t1 - t0, t2 - t1, sum(x.numel() * x.element_size() for x in back)
-
-    narrow(), wide()
-    runs = {"narrow": [], "wide": []}
-    for side in ("narrow", "wide", "wide", "narrow"):
-        runs[side].append((narrow if side == "narrow" else wide)())
-    up, back = (min(r[i] for r in runs["narrow"]) for i in (0, 1))
-    wide_up, wide_back = (min(r[i] for r in runs["wide"]) for i in (0, 1))
+    turn()
+    runs = [turn(), turn()]
+    up, back = (min(r[i] for r in runs) for i in (0, 1))
     up_bytes = sum(arrays[k].size * np.dtype(w).itemsize for k, w in _UP.items())
-    back_bytes, pinned = runs["narrow"][0][2:]
-    wide_bytes = runs["wide"][0][2]
+    back_bytes, pinned = runs[0][2:]
     return {
         "transfer_ms_per_batch": (up + back) * 1e3,
         "transfer_mb_per_batch": (up_bytes + back_bytes) / 1e6,
@@ -430,10 +399,6 @@ def wire_transfer(arrays: dict, device="cuda") -> dict:
         "transfer_mb_up": up_bytes / 1e6,
         "transfer_mb_back": back_bytes / 1e6,
         "transfer_pinned": pinned,
-        "wide_transfer_ms_per_batch": (wide_up + wide_back) * 1e3,
-        "wide_transfer_mb_per_batch": 2 * wide_bytes / 1e6,
-        "wide_transfer_up_ms": wide_up * 1e3,
-        "wide_transfer_back_ms": wide_back * 1e3,
     }
 
 

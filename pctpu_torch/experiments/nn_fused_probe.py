@@ -2,13 +2,13 @@
 ``chip_smoke.py``: its grid and time over the target splits, on one CUDA
 card.
 
-    python3 -m pctpu_torch.experiments.nn_fused_probe [--only=v1]
+    python3 -m pctpu_torch.experiments.nn_fused_probe
 
-At 65,536² and 16,384² (uniform in ±70 m, 5% masked): the first design's
-kernel (``nn_1_fused_v1``) and, unless ``--only=v1``, the three launches of
+At 65,536² and 16,384² (uniform in ±70 m, 5% masked): the three launches of
 ``nn_1_fused`` with the splits the C side picks and with 1, 2, 4, ... fixed
-splits, each held index for index against the first design, then timed by
-CUDA events (the C call alone, in turns) and per kernel by torch.profiler;
+splits, each held index for index against the twin
+(``nn_1_fused_reference``, on the card), then timed by CUDA events (the C
+call alone, in turns) and per kernel by torch.profiler;
 the grid (query tiles × splits), the bound (8 flop a pair at the card's f32
 rate) and the share of it reached.  Every line carries the card's name and
 power limit.
@@ -22,11 +22,10 @@ import numpy as np
 import torch
 
 
-def main(argv: list[str] | None = None) -> int:
+def main() -> int:
     from pctpu_torch.experiments.card import bound_ms, cuda_ms, nvidia_smi_line, profile_calls
     from pctpu_torch.ops import cuda_knn
 
-    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         raise SystemExit("nn_fused_probe needs a CUDA card")
     dev = torch.device("cuda", 0)
@@ -38,27 +37,22 @@ def main(argv: list[str] | None = None) -> int:
         qm, tm = (torch.from_numpy(rng.random(n) >= 0.05).to(dev) for _ in range(2))
         args = (q, qm, t, tm)
         bound = bound_ms(n * (13 + 8) + n * 13, 8 * n * n)
-        old, old_idx = cuda_knn._fused_v1_launcher(*args)
-        old()
-        torch.cuda.synchronize()
-        want = old_idx.clone()
-        cases = [("v1 (first design)", old, None)]
-        if "--only=v1" not in argv:
-            seen = set()
-            for splits in (0, 1, 2, 4, 8, 16, 32, 64, 128):
-                if cuda_knn.fused_grid(n, n, splits) in seen:
-                    continue
-                seen.add(cuda_knn.fused_grid(n, n, splits))
-                launch, idx, _ = cuda_knn._fused_launcher(*args, splits=splits)
-                launch()
-                torch.cuda.synchronize()
-                bad = int((idx != want).sum())
-                if bad:
-                    raise AssertionError(f"Q = T = {n}, splits {splits}: {bad} indices differ "
-                                         "from the first design's")
-                grid = cuda_knn.fused_grid(n, n, splits)
-                cases.append((f"new, splits {'picked' if splits == 0 else 'fixed'}: grid "
-                              f"{grid[0]} x {grid[1]} = {grid[0] * grid[1]} blocks", launch, grid))
+        want = cuda_knn.nn_1_fused_reference(*args)[0]
+        cases, seen = [], set()
+        for splits in (0, 1, 2, 4, 8, 16, 32, 64, 128):
+            grid = cuda_knn.fused_grid(n, n, splits)
+            if grid in seen:
+                continue
+            seen.add(grid)
+            launch, idx, _ = cuda_knn._fused_launcher(*args, splits=splits)
+            launch()
+            torch.cuda.synchronize()
+            bad = int((idx != want).sum())
+            if bad:
+                raise AssertionError(f"Q = T = {n}, splits {splits}: {bad} indices differ "
+                                     "from the twin's")
+            cases.append((f"splits {'picked' if splits == 0 else 'fixed'}: grid "
+                          f"{grid[0]} x {grid[1]} = {grid[0] * grid[1]} blocks", launch, grid))
         ms = {name: [] for name, *_ in cases}
         for name, launch, _ in cases + cases[::-1]:
             ms[name].append(cuda_ms(launch, reps=10))

@@ -9,8 +9,7 @@ Three parts, each printed with the card's name and power limit:
    through: one lone segment of 1,750 and of 17,500 rows (what the carry of
    ``csrc/segment_sum.cu`` costs a row when nothing else runs), many segments
    of 120 and of 20 rows (its throughput), and no segment at all (the scan);
-   the tile kernel and the first design's walk, device time per kernel by
-   torch.profiler;
+   the tile kernel's device time by torch.profiler;
 2. the lone 17,500-row segment again with the carry's adds replaced by XORs
    in a copy of the source built under ``build/``: if the time does not move,
    the add chain is not what bounds the carry;
@@ -78,16 +77,14 @@ def main() -> int:
         for name, lengths, n in shapes:
             args = _rows(lengths, n, gather, dev)
             tile = voxel._segment_launcher(*args, "segment_sum4", fill=False)[0]
-            walk = voxel._segment_launcher(*args, "segment_sum_walk", walk=True, fill=False)[0]
             t = _kernel_us(tile, "segment_sum_tile_kernel")
-            w = _kernel_us(walk, "segment_sum_walk_kernel", reps=10)
             rows = sum(lengths)
             per_row = f", {t * 1e-6 * mhz * 1e6 / rows:.1f} cycles a row" if len(lengths) == 1 else ""
             print(f"{name}, {'through an order' if gather else 'in place'}: tile {t:.3f} us"
-                  f"{per_row}, walk {w:.3f} us; card {card}", flush=True)
+                  f"{per_row}; card {card}", flush=True)
 
     # 2. the carry without its add chain, from a copy of the source
-    src = _cuda.SOURCES[2].read_text()
+    src = next(s for s in _cuda.SOURCES if s.name == "segment_sum.cu").read_text()
     if src.count(_ADDS) != 1:
         raise SystemExit("segment_sums_probe: the carry's adds are not where this probe looks")
     _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -146,7 +143,6 @@ def main() -> int:
          lambda: torch.cuda.current_stream(dev).cuda_stream),
         ("the C call, fill + tile kernel", launcher()),
         ("the C call, tile kernel alone", launcher(fill=False)),
-        ("the C call, fill + walk", launcher(walk=True)),
         ("segment_sum_sorted", lambda: voxel.segment_sum_sorted(values, seg)),
         ("segment_sum_sorted(fill=False)",
          lambda: voxel.segment_sum_sorted(values, seg, fill=False)),

@@ -1,4 +1,4 @@
-"""The BEV pipeline's host↔device wire three ways, in one process on one device.
+"""The BEV pipeline's host↔device wire two ways, in one process on one device.
 
     python -m pctpu_torch.experiments.wire_ab [--rounds=N] [--clouds=N] [--device=cuda|cpu]
 
@@ -8,11 +8,9 @@ grid-ordered clouds, two raw, one over capacity) with:
 
 - P: the pipelines' wire (``multi_bev._to_device``, ``_wire``, ``_to_host``:
   on-disk widths both ways, pinned host tensors on a card, one synchronize);
-- U: the same narrow wire, copied back into pageable host tensors;
-- W: the wide wire (every field widened on the host, 36 B a slot, and each
-  field copied back wide, pageable and blocking, narrowed on the host).
+- U: the same wire, copied back into pageable host tensors.
 
-After a warm-up run of each, the runs go in turns, P U W W U P, ``--rounds``
+After a warm-up run of each, the runs go in turns, P U U P, ``--rounds``
 times, each writing the tree anew, and every run's tree must equal the first
 P run's, byte for byte.  Prints one JSON line a run (clouds/s on the host
 clock, ``[TIME]`` device and write ms a cloud, loop wall ms a cloud), then one
@@ -36,14 +34,11 @@ import statistics
 import sys
 import time
 
-import numpy as np
 import torch
 
-from pctpu_torch.experiments.bench import to_device_wide
 from pctpu_torch.pipelines import multi_bev
 
 _WIRE = ("_to_device", "_wire", "_to_host")
-_FIELDS = ("xyz", "intensity", "row", "col", "t", "label")
 
 
 def _to_host_pageable(parts: list[dict]) -> dict:
@@ -52,20 +47,13 @@ def _to_host_pageable(parts: list[dict]) -> dict:
     return {k: a.view(multi_bev._ON_DISK.get(k, a.dtype)) for k, a in host.items()}
 
 
-def _to_host_wide(parts: list[dict]) -> dict:
-    host = {k: np.concatenate([p[k].cpu().numpy() for p in parts]) for k in parts[0]}
-    return {k: a.astype(multi_bev._ON_DISK[k]) if k in multi_bev._ON_DISK else a
-            for k, a in host.items()}
-
-
 def variants() -> dict[str, tuple]:
-    """The three wires as (``_to_device``, ``_wire``, ``_to_host``) of
+    """The two wires as (``_to_device``, ``_wire``, ``_to_host``) of
     ``multi_bev``."""
     real = tuple(getattr(multi_bev, k) for k in _WIRE)
     return {
         "P": real,
         "U": (real[0], real[1], _to_host_pageable),
-        "W": (to_device_wide, lambda c: {k: getattr(c, k) for k in _FIELDS}, _to_host_wide),
     }
 
 
@@ -138,7 +126,7 @@ def writers_alone(paths: list[str], params, dev: torch.device, out_dir: str,
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m pctpu_torch.experiments.wire_ab")
-    ap.add_argument("--rounds", type=int, default=3, help="P U W W U P turns (default 3)")
+    ap.add_argument("--rounds", type=int, default=3, help="P U U P turns (default 3)")
     ap.add_argument("--clouds", type=int, default=64,
                     help="grid-ordered clouds of the drive (default 64, as phase 9)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -169,7 +157,7 @@ def main(argv: list[str] | None = None) -> int:
         want = tree_bytes(tree)
         stats0 = torch.cuda.host_memory_stats() if dev.type == "cuda" else {}
         rows, differ = [], []
-        for v in "PUWWUP" * args.rounds:
+        for v in "PUUP" * args.rounds:
             row = {"variant": v, **run_once(tree, params, dev, wires[v])}
             got = tree_bytes(tree)
             if got != want:

@@ -26,15 +26,14 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / f for f in (
-    "nn_pruned_warp.cu", "nn_variant.cu", "nn_pruned.cu", "segment_sum.cu", "nn_fused.cu",
-    "bev_raster.cu", "pca_moments.cu"))
+    "nn_pruned_warp.cu", "nn_variant.cu", "segment_sum.cu", "nn_fused.cu", "bev_raster.cu",
+    "pca_moments.cu"))
 BUILD_DIR = _PKG.parent / "build" / "pctpu_torch"
 
 # the (TQ, TT, MODE) instances of the argmin and tile-shape variants
 # (MODE: 0 prod, 1 explicit2, 2 64-bit key, 3 bf16): every tile shape in
 # prod, and each other argmin body at (256, 1024).  The build instantiates
-# exactly these in both designs — csrc/nn_variant.cu (pctpu_nn_variant) and
-# the first, csrc/nn_pruned.cu (pctpu_nn_variant_v1) — through the
+# exactly these in csrc/nn_variant.cu (pctpu_nn_variant) through the
 # NN_INSTANCES macro of a generated header, so this is the only list.
 NN_INSTANCES = (
     (128, 1024, 0), (256, 1024, 0), (256, 2048, 0), (256, 4096, 0), (512, 1024, 0),
@@ -48,9 +47,8 @@ NVCC_FLAGS = (
 
 launch_counts: dict[str, int] = {
     "nn_prep": 0, "nn_pruned": 0, "nn_pruned_count": 0, "nn_prep_batched": 0,
-    "nn_pruned_batched": 0, "nn_pruned_batched_v1": 0, "segment_sum4": 0, "nn_fused": 0,
-    "nn_variant": 0, "nn_variant_prep": 0, "nn_variant_v1": 0, "ground_sums": 0, "bev_raster": 0, "segment_sum_walk": 0,
-    "nn_fused_v1": 0, "bev_raster_v1": 0, "pca_moments": 0,
+    "nn_pruned_batched": 0, "segment_sum4": 0, "nn_fused": 0, "nn_variant": 0,
+    "nn_variant_prep": 0, "ground_sums": 0, "bev_raster": 0, "pca_moments": 0,
 }
 
 _lib: ctypes.CDLL | None = None
@@ -140,39 +138,23 @@ def library() -> ctypes.CDLL:
             p, p, i64, i64, p, p, p, i64, i64, ctypes.c_float, p, p, p, p, p,
         ]
         lib.pctpu_nn_pruned_batched.restype = ctypes.c_int
-        lib.pctpu_nn_pruned_batched_v1.argtypes = [
-            p, p, i64, i64, p, p, p, i64, i64, ctypes.c_float, p, p, p, p,
-        ]
-        lib.pctpu_nn_pruned_batched_v1.restype = ctypes.c_int
         lib.pctpu_nn_variant_prep.argtypes = [p, p, i64, i64, ctypes.c_int, p, p, p, p]
         lib.pctpu_nn_variant_prep.restype = ctypes.c_int
         lib.pctpu_nn_variant.argtypes = [
             p, p, i64, p, p, p, i64, i64, i64, ctypes.c_int, ctypes.c_float, p, p, p, p, p,
         ]
         lib.pctpu_nn_variant.restype = ctypes.c_int
-        lib.pctpu_nn_variant_v1.argtypes = [
-            p, p, i64, p, p, i64, p, i64, p, i64, ctypes.c_int, ctypes.c_float,
-            p, p, p,
-        ]
-        lib.pctpu_nn_variant_v1.restype = ctypes.c_int
         lib.pctpu_nn_fused.argtypes = [p, i64, p, p, i64, p, p, p, ctypes.c_int, p]
         lib.pctpu_nn_fused.restype = ctypes.c_int
         lib.pctpu_nn_fused_splits.argtypes = [i64, i64, ctypes.c_int]
         lib.pctpu_nn_fused_splits.restype = ctypes.c_int
-        lib.pctpu_nn_fused_v1.argtypes = [p, i64, p, p, i64, p, p, p]
-        lib.pctpu_nn_fused_v1.restype = ctypes.c_int
         f, i32 = ctypes.c_float, ctypes.c_int
-        for fn in (lib.pctpu_segment_sum, lib.pctpu_segment_sum_walk):
-            fn.argtypes = [p, p, p, i64, i32, f, f, f, f, p, i64, i32, p]
-            fn.restype = ctypes.c_int
+        lib.pctpu_segment_sum.argtypes = [p, p, p, i64, i32, f, f, f, f, p, i64, i32, p]
+        lib.pctpu_segment_sum.restype = ctypes.c_int
         lib.pctpu_bev_raster.argtypes = [
             p, p, p, i64, i64, i32, i32, f, f, f, f, f, f, p, p, p, p, p,
         ]
         lib.pctpu_bev_raster.restype = ctypes.c_int
-        lib.pctpu_bev_raster_v1.argtypes = [
-            p, p, p, i64, i64, i32, i32, f, f, f, f, f, f, p, p, p, p, p, p,
-        ]
-        lib.pctpu_bev_raster_v1.restype = ctypes.c_int
         lib.pctpu_pca_moments.argtypes = [p, p, i64, p, p, p]
         lib.pctpu_pca_moments.restype = ctypes.c_int
         lib.pctpu_pca_moments_scratch_words.argtypes = [i64]

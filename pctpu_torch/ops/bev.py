@@ -18,9 +18,8 @@ cell with the bits pctpu's CPU gives it, ``rounding.x86_nan``; only which of
 several differently signed NaNs a cell keeps may differ, README D21).  ``fused_multi_single_bev`` computes both in one pass; on CUDA it
 is the hand-written kernel ``csrc/bev_raster.cu`` (pctpu's counterpart is a
 TPU-shaped double sort with a Hillis-Steele OR scan): one memset and two
-kernels a call.  The two torch ops are its plain twin, and
-``fused_multi_single_bev_v1`` the first design's kernels, for the card
-tests.  Every op takes one cloud or a batch (leading axis).
+kernels a call.  The two torch ops are its plain twin.  Every op takes one
+cloud or a batch (leading axis).
 """
 
 from __future__ import annotations
@@ -148,13 +147,11 @@ def _raster_inputs(cloud: Cloud, multi_cfg: MultiBevConfig, single_cfg: SingleBe
 def _raster_launcher(cloud: Cloud, height_res: float,
                      multi_cfg: MultiBevConfig = MultiBevConfig(),
                      single_cfg: SingleBevConfig = SingleBevConfig(),
-                     counter: torch.Tensor | None = None, v1: bool = False):
+                     counter: torch.Tensor | None = None):
     """Validate a CUDA cloud for ``csrc/bev_raster.cu`` and allocate its
     outputs and scratch.  Returns (launch, multi, single): each ``launch()``
-    puts one call's work on the stream — the memset and the two kernels, or
-    with ``v1`` the first design's two kernels on scratch the launcher has
-    zeroed, so that a second ``launch()`` needs a new launcher — and counts
-    one ``bev_raster`` (``bev_raster_v1``).  ``counter`` (a zeroed int64 CUDA
+    puts one call's work on the stream — the memset and the two kernels — and
+    counts one ``bev_raster``.  ``counter`` (a zeroed int64 CUDA
     tensor) receives the atomics the raster kernel sends."""
     if not fused_bev_compatible(multi_cfg, single_cfg):
         raise ValueError("fused raster needs matching multi/single BEV grid geometry")
@@ -162,24 +159,19 @@ def _raster_launcher(cloud: Cloud, height_res: float,
     dev = xyz.device
     b, p = label.shape
     s, nl = multi_cfg.mat_size, multi_cfg.num_layers
-    if v1:
-        scratch = [torch.zeros((b, s * s), dtype=torch.int32, device=dev) for _ in range(2)]
-    else:
-        scratch = [torch.empty((b, 2, s * s), dtype=torch.int32, device=dev)]
+    scratch = torch.empty((b, 2, s * s), dtype=torch.int32, device=dev)
     multi = torch.empty((b, nl, s, s), dtype=torch.uint8, device=dev)
     single = torch.empty((b, s, s), dtype=torch.uint8, device=dev)
-    lib = _cuda.library()
-    fn, name = (lib.pctpu_bev_raster_v1, "bev_raster_v1") if v1 else \
-        (lib.pctpu_bev_raster, "bev_raster")
+    fn = _cuda.library().pctpu_bev_raster
     counter_ptr = None if counter is None else counter.data_ptr()
 
     def launch():
         rc = fn(xyz.data_ptr(), label.data_ptr(), count.data_ptr(), b, p, s, nl,
                 multi_cfg.max_range, multi_cfg.interval, height_res,
                 multi_cfg.lidar_to_ground_height, single_cfg.lidar_to_ground_height,
-                single_cfg.height_scale, *(t.data_ptr() for t in scratch), multi.data_ptr(),
+                single_cfg.height_scale, scratch.data_ptr(), multi.data_ptr(),
                 single.data_ptr(), counter_ptr, _cuda.stream_ptr(dev))
-        _cuda.check(rc, name)
+        _cuda.check(rc, "bev_raster")
 
     return launch, out(multi), out(single)
 
@@ -201,26 +193,11 @@ def fused_multi_single_bev(
     return multi, single
 
 
-def fused_multi_single_bev_v1(
-    cloud: Cloud, height_res: float,
-    multi_cfg: MultiBevConfig = MultiBevConfig(),
-    single_cfg: SingleBevConfig = SingleBevConfig(),
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """:func:`fused_multi_single_bev` by the first design's kernels
-    (``pctpu_bev_raster_v1``: two scratch tensors zeroed by ``torch.zeros``,
-    one thread a point with its own atomics, one thread a cell), kept so
-    that the card tests and ``chip_smoke.py`` can hold old, new and twin in
-    one call.  CUDA tensors only."""
-    launch, multi, single = _raster_launcher(cloud, height_res, multi_cfg, single_cfg, v1=True)
-    launch()
-    return multi, single
-
-
 def atomics_sent(cloud: Cloud, height_res: float,
                    multi_cfg: MultiBevConfig = MultiBevConfig(),
-                   single_cfg: SingleBevConfig = SingleBevConfig(), v1: bool = False) -> int:
-    """The global atomics one call's raster kernel sends for this cloud (the
-    first design's with ``v1``), from the kernel's own count (synchronises)."""
+                   single_cfg: SingleBevConfig = SingleBevConfig()) -> int:
+    """The global atomics one call's raster kernel sends for this cloud,
+    from the kernel's own count (synchronises)."""
     counter = torch.zeros((1,), dtype=torch.int64, device=cloud.device)
-    _raster_launcher(cloud, height_res, multi_cfg, single_cfg, counter, v1)[0]()
+    _raster_launcher(cloud, height_res, multi_cfg, single_cfg, counter)[0]()
     return int(counter.item())

@@ -20,12 +20,8 @@ problem.  A pass (one problem is the P = 1 case) is a memset and three
 launches: the seed also writes a work list of the (problem, query warp,
 target tile) items that its bound cannot rule out, and a persistent main
 grid works through that list on the card; its scratch holds the list, room
-for every item (``_pass_scratch_words``).  ``nn_1_pruned_batched_v1`` is the
-first warp design's pass (seed over every group box, a dense main grid of
-(query warps × tiles × problems)), kept so that old, new and twin are held
-and timed in one call.  The Morton sort key and
-the payload sort are torch ops, as in pctpu they are XLA ops around the
-kernel.
+for every item (``_pass_scratch_words``).  The Morton sort key and the
+payload sort are torch ops, as in pctpu they are XLA ops around the kernel.
 
 Contract (both paths, identical results): for every query, the index of the
 nearest valid target by the squared distance fma(dz, dz, fma(dy, dy, dx·dx))
@@ -68,10 +64,6 @@ returns the winner's d² re-derived from the f32 coordinates.  A call on the
 card is the prep (``prepare_variant_target``, counted ``nn_variant_prep``)
 and one pass of three launches (counted ``nn_variant``), with no torch op
 between them but the outputs' and scratch's allocation.
-``nn_1_pruned_variant_v1`` runs the same instances in the first design,
-one block walking every target tile (``csrc/nn_pruned.cu``, counted
-``nn_variant_v1``), so that old, new and twin are held and timed in one
-call.
 
 ``nn_1_fused`` launches ``csrc/nn_fused.cu`` (it replaces the TPU kernel
 ``_nn_kernel`` of ``pallas_nn_1``): the unpruned 1-NN on the score
@@ -80,8 +72,7 @@ call.
 (the index is kept).  One call is three launches: a prep that packs the
 target as float4 (twin ``prepare_fused_target_reference``), the main grid of
 query tiles × target splits, and a finish.  Its twin is
-``nn_1_fused_reference``; ``nn_1_fused_v1`` is the first design's kernel, for
-the card tests.  Where a coordinate is NaN or infinite a score is NaN, and a
+``nn_1_fused_reference``.  Where a coordinate is NaN or infinite a score is NaN, and a
 NaN score never wins; pctpu's kernel instead loses every target of the
 tile (``tt``) that holds one, so its answer there depends on its tile size.
 """
@@ -97,14 +88,12 @@ from pctpu_torch.ops import _cuda
 from pctpu_torch.ops.knn import _fma_f32, sq_dist
 
 # nn_1_pruned's target group and tile (csrc/nn_pruned_warp.cu's kGroup,
-# kTile); TQ is the query tile of the earlier form, the (TQ, TT, "prod")
-# variant
+# kTile); (TQ, TT, "prod") is the variant of K1's own shape
 GROUP = 32
 TT = 1024
 TQ = 128
 _BIG = 3e38
-# the main launch's grid holds one y row per target tile, one z row per
-# problem
+# a work item keeps its target tile and its problem in 16 bits each
 _MAX_TARGETS = 65535 * TT
 _MAX_PROBLEMS = 65535
 # nn_1_fused's target tile and the queries of a block (csrc/nn_fused.cu's
@@ -312,7 +301,7 @@ def _thr2(max_distance: float | None) -> float:
 
 
 def _finish(query, query_mask, target, target_mask, idx, found, thr2):
-    """Shared epilogue: re-derive the winner's d² elementwise (the kernel's
+    """The twin's epilogue: re-derive the winner's d² elementwise (the kernel's
     own formula, so it matches bit for bit), then map masked, not found and
     beyond-threshold queries to (index 0, +inf)."""
     idx = idx.to(torch.int64).clamp(0, target.shape[0] - 1)
@@ -377,18 +366,16 @@ def _per_target(n_problems: int, n_targets: int) -> int:
     return n_problems // n_targets
 
 
-def _pass_scratch_words(n_problems: int, nq: int, tiles: int, v1: bool = False) -> int:
-    """The 64-bit words of a pass's scratch: each problem's query warps'
-    boxes (four words each) and one key a query; the new design adds the
-    work list's count and a spare word, and the list itself, room
-    for every (problem, query warp, tile) item — the first design's dense
-    grid."""
+def _pass_scratch_words(n_problems: int, nq: int, tiles: int) -> int:
+    """The 64-bit words of a pass's scratch: the work list's count and a
+    spare word, each problem's query warps' boxes (four words each), one key
+    a query, and the list itself, room for every (problem, query warp, tile)
+    item."""
     warps = -(-nq // 32)
-    words = n_problems * (4 * warps + nq)
-    return words if v1 else 2 + words + n_problems * warps * tiles
+    return 2 + n_problems * (4 * warps + nq + warps * tiles)
 
 
-def _pass_launcher(query, query_mask, prepared, thr2, counter=None, v1=False):
+def _pass_launcher(query, query_mask, prepared, thr2, counter=None):
     """Validate CUDA queries for a pass of ``csrc/nn_pruned_warp.cu`` and
     allocate its outputs and scratch: ``query`` (Q, 3) on a
     :class:`PreparedTarget`, or (P, Q, 3) on :class:`PreparedTargets`.
@@ -396,9 +383,7 @@ def _pass_launcher(query, query_mask, prepared, thr2, counter=None, v1=False):
     memset, seed, main and finish) into the outputs and counts it once, as
     ``nn_pruned`` or ``nn_pruned_batched``.  With ``counter`` (two int64
     words on the card) the counting instance runs, counted as
-    ``nn_pruned_count``, and adds the pairs it visited and the list's items.
-    ``v1``: the first warp design's pass (seed, dense main grid, finish) on
-    either kind of target, counted as ``nn_pruned_batched_v1``."""
+    ``nn_pruned_count``, and adds the pairs it visited and the list's items."""
     dev = query.device
     _cuda.require_card(dev, "the nn_pruned kernels")
     batched = isinstance(prepared, PreparedTargets)
@@ -419,26 +404,19 @@ def _pass_launcher(query, query_mask, prepared, thr2, counter=None, v1=False):
     _cuda.require(prepared.tile_box, "prepared.tile_box", torch.float32, (*tl, 8, tiles), dev)
     if not 0 < nq < 2**31 - 256:
         raise ValueError(f"nn_pruned: unsupported size Q={nq}")
-    if counter is not None and v1:
-        raise ValueError("nn_pruned: the first design has no counting instance")
     idx = torch.empty((*lead, nq), dtype=torch.int32, device=dev)
     d2 = torch.empty((*lead, nq), dtype=torch.float32, device=dev)
-    scratch = torch.empty((_pass_scratch_words(n_problems, nq, tiles, v1),), dtype=torch.int64,
+    scratch = torch.empty((_pass_scratch_words(n_problems, nq, tiles),), dtype=torch.int64,
                           device=dev)
     lib = _cuda.library()
-    name = ("nn_pruned_batched_v1" if v1 else "nn_pruned_count" if counter is not None
+    name = ("nn_pruned_count" if counter is not None
             else "nn_pruned_batched" if batched else "nn_pruned")
     count_ptr = None if counter is None else counter.data_ptr()
     ptrs = (prepared.packed.data_ptr(), prepared.group_box.data_ptr(),
             prepared.tile_box.data_ptr())
 
     def launch():
-        if v1:
-            rc = lib.pctpu_nn_pruned_batched_v1(
-                query.data_ptr(), query_mask.data_ptr(), n_problems, nq, *ptrs, n_targets,
-                tiles, thr2, scratch.data_ptr(), idx.data_ptr(), d2.data_ptr(),
-                _cuda.stream_ptr(dev))
-        elif batched:
+        if batched:
             rc = lib.pctpu_nn_pruned_batched(
                 query.data_ptr(), query_mask.data_ptr(), n_problems, nq, *ptrs, n_targets,
                 tiles, thr2, scratch.data_ptr(), idx.data_ptr(), d2.data_ptr(), count_ptr,
@@ -513,23 +491,6 @@ def nn_1_pruned_batched(
         return nn_1_pruned_batched_reference(query, query_mask, pts,
                                              torch.isfinite(pts).all(dim=2), max_distance)
     launch, idx, d2 = _pass_launcher(query, query_mask, prepared, _thr2(max_distance))
-    launch()
-    return idx, d2
-
-
-def nn_1_pruned_batched_v1(
-    query: torch.Tensor,
-    query_mask: torch.Tensor,
-    prepared: PreparedTargets | PreparedTarget,
-    max_distance: float | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """:func:`nn_1_pruned_batched` (or, on a :class:`PreparedTarget` and
-    (Q, 3) queries, :func:`nn_1_pruned`) by the first warp design's kernels
-    (seed over every group box, a dense main grid of (query warps × tiles ×
-    problems), finish), kept so that the card tests and ``chip_smoke.py``
-    can hold old, new and twin in one call.  CUDA tensors only; counted
-    ``nn_pruned_batched_v1``."""
-    launch, idx, d2 = _pass_launcher(query, query_mask, prepared, _thr2(max_distance), v1=True)
     launch()
     return idx, d2
 
@@ -640,37 +601,6 @@ def _variant_launcher(query, query_mask, prepared, target, thr2, tq, tt, mode):
     return launch, idx, d2
 
 
-def _pruned_launcher(query, query_mask, target, target_mask, thr2, tq, tt, mode):
-    """Validate CUDA inputs for one instance of the first design
-    (``csrc/nn_pruned.cu``), build the tile boxes and the outputs.  Returns
-    (launch, val, idx): each ``launch()`` runs the kernel into the raw
-    outputs (best d², index) and counts one ``nn_variant_v1``."""
-    dev = query.device
-    if dev.type != "cuda":
-        raise ValueError(f"the nn_variant_v1 kernel needs CUDA tensors, got {dev}")
-    nq, nt = query.shape[0], target.shape[0]
-    _cuda.require(query, "query", torch.float32, (-1, 3), dev)
-    _cuda.require(query_mask, "query_mask", torch.bool, (nq,), dev)
-    _cuda.require(target, "target", torch.float32, (-1, 3), dev)
-    _cuda.require(target_mask, "target_mask", torch.bool, (nt,), dev)
-    if nq == 0 or nt == 0 or nt >= 2**31:
-        raise ValueError(f"nn_variant_v1: unsupported sizes Q={nq}, T={nt}")
-    q_box = _tile_bboxes(_pad_rows(query, tq), _pad_rows(query_mask, tq), tq)
-    t_box = _tile_bboxes(_pad_rows(target, tt), _pad_rows(target_mask, tt), tt)
-    val = torch.empty((nq,), dtype=torch.float32, device=dev)
-    idx = torch.empty((nq,), dtype=torch.int32, device=dev)
-    fn = _cuda.library().pctpu_nn_variant_v1
-
-    def launch():
-        rc = fn(query.data_ptr(), query_mask.data_ptr(), nq,
-                target.data_ptr(), target_mask.data_ptr(), nt,
-                q_box.data_ptr(), tq, t_box.data_ptr(), tt, MODES[mode], thr2,
-                val.data_ptr(), idx.data_ptr(), _cuda.stream_ptr(dev))
-        _cuda.check(rc, "nn_variant_v1")
-
-    return launch, val, idx
-
-
 def _bf16(x: torch.Tensor) -> torch.Tensor:
     """f32 values rounded to the nearest bf16 (ties to even), as f32."""
     return x.to(torch.bfloat16).to(torch.float32)
@@ -717,36 +647,6 @@ def nn_1_pruned_variant(
                                         _thr2(max_distance), tq, tt, mode)
     launch()
     return idx, d2
-
-
-def nn_1_pruned_variant_v1(
-    query: torch.Tensor,
-    query_mask: torch.Tensor,
-    target: torch.Tensor,
-    target_mask: torch.Tensor,
-    max_distance: float | None,
-    tq: int,
-    tt: int,
-    mode: str,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """:func:`nn_1_pruned_variant` by the first design's kernel
-    (``csrc/nn_pruned.cu``: the wrapper builds both box planes, one block
-    walks every target tile, and a torch epilogue re-derives the d²), kept
-    so that the card tests and ``chip_smoke.py`` can hold old, new and twin
-    in one call.  CUDA tensors launch it (or raise); CPU tensors run the
-    same twin."""
-    _check_variant("nn_1_pruned_variant_v1", tq, tt, mode)
-    if query.device.type == "cpu":
-        return _variant_twin(query, query_mask, target, target_mask, max_distance, mode)
-    thr2 = _thr2(max_distance)
-    # bf16: the kernel gets the rounded points, so its boxes and the
-    # threshold test use what it compares; the winners' d² come from the f32
-    # points
-    q, t = (_bf16(query), _bf16(target)) if mode == "bf16" else (query, target)
-    launch, val, idx = _pruned_launcher(q, query_mask, t, target_mask, thr2, tq, tt, mode)
-    launch()
-    idx, d2 = _finish(q, query_mask, t, target_mask, idx, val < _BIG / 2, thr2)
-    return _rescore(query, target, idx, d2) if mode == "bf16" else (idx, d2)
 
 
 def _finish_fused(query, query_mask, target, target_mask, idx):
@@ -803,27 +703,22 @@ def nn_1_fused_reference(
     return _finish_fused(query, query_mask, target, target_mask, idx)
 
 
-def _fused_inputs(name, query, query_mask, target, target_mask):
-    dev = query.device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: the kernel needs CUDA tensors, got {dev}")
-    nq, nt = query.shape[0], target.shape[0]
-    _cuda.require(query, "query", torch.float32, (-1, 3), dev)
-    _cuda.require(query_mask, "query_mask", torch.bool, (nq,), dev)
-    _cuda.require(target, "target", torch.float32, (-1, 3), dev)
-    _cuda.require(target_mask, "target_mask", torch.bool, (nt,), dev)
-    if nq == 0 or nt == 0 or nt >= 2**31 - FUSED_TILE:
-        raise ValueError(f"{name}: unsupported sizes Q={nq}, T={nt}")
-    return dev, nq, nt
-
-
 def _fused_launcher(query, query_mask, target, target_mask, splits: int = 0):
     """Validate CUDA inputs for ``csrc/nn_fused.cu`` and allocate its output
     and scratch.  Returns (launch, idx, packed): each ``launch()`` runs the
     prep, main and finish kernels and counts one ``nn_fused``; ``packed`` is
     the prep kernel's output.  ``splits`` > 0 fixes the main grid's target
     splits (0: the C side picks them, :func:`fused_grid`)."""
-    dev, nq, nt = _fused_inputs("nn_1_fused", query, query_mask, target, target_mask)
+    dev = query.device
+    if dev.type != "cuda":
+        raise ValueError(f"nn_1_fused: the kernel needs CUDA tensors, got {dev}")
+    nq, nt = query.shape[0], target.shape[0]
+    _cuda.require(query, "query", torch.float32, (-1, 3), dev)
+    _cuda.require(query_mask, "query_mask", torch.bool, (nq,), dev)
+    _cuda.require(target, "target", torch.float32, (-1, 3), dev)
+    _cuda.require(target_mask, "target_mask", torch.bool, (nt,), dev)
+    if nq == 0 or nt == 0 or nt >= 2**31 - FUSED_TILE:
+        raise ValueError(f"nn_1_fused: unsupported sizes Q={nq}, T={nt}")
     packed = torch.empty((-(-nt // FUSED_TILE) * FUSED_TILE, 4), dtype=torch.float32, device=dev)
     keys = torch.empty((nq,), dtype=torch.int64, device=dev)
     idx = torch.empty((nq,), dtype=torch.int32, device=dev)
@@ -859,30 +754,5 @@ def nn_1_fused(
     if query.device.type == "cpu":
         return nn_1_fused_reference(query, query_mask, target, target_mask)
     launch, idx, _ = _fused_launcher(query, query_mask, target, target_mask)
-    launch()
-    return _finish_fused(query, query_mask, target, target_mask, idx)
-
-
-def _fused_v1_launcher(query, query_mask, target, target_mask):
-    """As :func:`_fused_launcher` for the first design's one kernel
-    (``pctpu_nn_fused_v1``); counts ``nn_fused_v1``.  Returns (launch, idx)."""
-    dev, nq, nt = _fused_inputs("nn_1_fused_v1", query, query_mask, target, target_mask)
-    val = torch.empty((nq,), dtype=torch.float32, device=dev)
-    idx = torch.empty((nq,), dtype=torch.int32, device=dev)
-    fn = _cuda.library().pctpu_nn_fused_v1
-
-    def launch():
-        rc = fn(query.data_ptr(), nq, target.data_ptr(), target_mask.data_ptr(), nt,
-                val.data_ptr(), idx.data_ptr(), _cuda.stream_ptr(dev))
-        _cuda.check(rc, "nn_fused_v1")
-
-    return launch, idx
-
-
-def nn_1_fused_v1(query, query_mask, target, target_mask):
-    """:func:`nn_1_fused` by the first design's kernel, kept so that the card
-    tests and ``chip_smoke.py`` can hold old, new and twin in one call.
-    CUDA tensors only."""
-    launch, idx = _fused_v1_launcher(query, query_mask, target, target_mask)
     launch()
     return _finish_fused(query, query_mask, target, target_mask, idx)

@@ -86,12 +86,12 @@ def segment_sum_sorted_reference(
 _TAIL_SEGMENTS = 8
 
 
-def _segment_launcher(values, seg, init, n_out, order, count_as, walk=False, fill=True):
+def _segment_launcher(values, seg, init, n_out, order, count_as, fill=True):
     """Validate CUDA inputs of the segment-sum kernels and allocate the
     output.  Returns (launch, out): each ``launch()`` makes the one C call
     (the fill of ``out`` with ``init``, then the sums) and counts it under
-    ``count_as``.  ``walk`` takes the first design's entry; without ``fill``
-    rows that no segment names are left unwritten."""
+    ``count_as``.  Without ``fill`` rows that no segment names are left
+    unwritten."""
     dev = values.device
     if dev.type != "cuda":
         raise ValueError(f"the segment-sum kernel needs CUDA tensors, got {dev}")
@@ -114,8 +114,7 @@ def _segment_launcher(values, seg, init, n_out, order, count_as, walk=False, fil
         raise ValueError(f"init has {len(init)} values for {lanes} lanes")
     start = (*(float(v) for v in init or ()), 0.0, 0.0, 0.0, 0.0)[:4]
     out = torch.empty((n_out, lanes), dtype=torch.float32, device=dev)
-    lib = _cuda.library()
-    fn = lib.pctpu_segment_sum_walk if walk else lib.pctpu_segment_sum
+    fn = _cuda.library().pctpu_segment_sum
     order_ptr = None if order is None else order.data_ptr()
 
     def launch():
@@ -141,19 +140,6 @@ def segment_sum_sorted(
     if dev.type == "cpu":
         return segment_sum_sorted_reference(values, seg, init, n_out, order)
     launch, out = _segment_launcher(values, seg, init, n_out, order, count_as, fill=fill)
-    launch()
-    return out
-
-
-def segment_sum_walk(
-    values: torch.Tensor, seg: torch.Tensor, init=None, n_out: int | None = None,
-    order: torch.Tensor | None = None,
-) -> torch.Tensor:
-    """:func:`segment_sum_sorted` by the first design's kernel (one thread
-    walks each segment), CUDA only: the card tests and ``chip_smoke.py`` hold
-    and time the two against each other; no pipeline calls it."""
-    launch, out = _segment_launcher(values, seg, init, n_out, order, "segment_sum_walk",
-                                    walk=True)
     launch()
     return out
 

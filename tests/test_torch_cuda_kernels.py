@@ -113,14 +113,13 @@ def _warp_cases(dev):
 @pytest.mark.parametrize("md", [None, 2.0, 1e-3])
 def test_nn_pruned_warp_cases(dev, md):
     """The warp design against its twin, bit for bit, with and without a
-    prepared target, and against the earlier block design."""
+    prepared target."""
     for name, args in _warp_cases(dev):
         want = tk.nn_1_pruned_reference(*args, max_distance=md)
         prep = tk.prepare_target(args[2], args[3])
         assert _bit_equal(tk.nn_1_pruned(*args, max_distance=md), want), (name, md)
         assert _bit_equal(tk.nn_1_pruned(*args[:2], max_distance=md, prepared=prep),
                           want), (name, md)
-        assert _bit_equal(tk.nn_1_pruned_variant_v1(*args, md, tk.TQ, tk.TT, "prod"), want), (name, md)
         visited = tk.pairs_visited(args[0], args[1], prep, md)
         assert 0 <= visited <= 1024 * -(-args[0].shape[0] // 32) * (prep.packed.shape[0] // 32 + 1)
 
@@ -229,23 +228,20 @@ def _problem_batch(args, n_problems, n_targets):
 @pytest.mark.cuda
 @pytest.mark.parametrize("md", [None, 2.0, 1e-3])
 @pytest.mark.parametrize("n_problems,n_targets", [(1, 1), (2, 2), (16, 16), (32, 16)])
-def test_nn_pruned_batched_new_v1_twin(dev, md, n_problems, n_targets):
-    """The work-list design, the first warp design (``nn_1_pruned_batched_v1``)
-    and the twin, bit for bit, over K1's edge cases as P problems on Bt
-    targets (problem p on target p // (P / Bt)); at P = 1 the single entry
-    too, and the list never holds more than the dense grid's blocks."""
+def test_nn_pruned_batched_new_twin(dev, md, n_problems, n_targets):
+    """The work-list design and the twin, bit for bit, over K1's edge cases
+    as P problems on Bt targets (problem p on target p // (P / Bt)); at P = 1
+    the single entry too, and the list never holds more than the dense
+    grid's blocks."""
     for name, args in _warp_cases(dev):
         q, qm, t, tm = _problem_batch(args, n_problems, n_targets)
         prep = tk.prepare_targets(t, tm)
         want = tk.nn_1_pruned_batched_reference(q, qm, t, tm, md)
         assert _bit_equal(tk.nn_1_pruned_batched(q, qm, prep, md), want), (name, md)
-        assert _bit_equal(tk.nn_1_pruned_batched_v1(q, qm, prep, md), want), (name, md, "v1")
         if n_problems == 1:
             one = tk.prepare_target(t[0], tm[0])
             assert _bit_equal(tk.nn_1_pruned(q[0], qm[0], prepared=one, max_distance=md),
                               [want[0][0], want[1][0]]), (name, md)
-            assert _bit_equal(tk.nn_1_pruned_batched_v1(q[0], qm[0], one, md),
-                              [want[0][0], want[1][0]]), (name, md, "v1")
         pairs, items = tk.pass_counts(q, qm, prep, md)
         tiles = prep.tile_box.shape[-1]
         assert 0 <= items <= n_problems * -(-q.shape[1] // 32) * tiles, name
@@ -258,8 +254,7 @@ def test_nn_pruned_batched_new_v1_twin(dev, md, n_problems, n_targets):
 def test_nn_pruned_work_list_empty_and_full(dev, n_problems, n_targets):
     """A pass whose list is empty (every tile beyond thr: queries 1 km away,
     thr 2 m) and one whose list is full (unsorted clouds, no thr: every
-    query warp's box overlaps every tile's), each bit-equal to the twin and
-    the first design."""
+    query warp's box overlaps every tile's), each bit-equal to the twin."""
     rng = np.random.default_rng(31)
     q, qm, t, tm = _sorted_scene(dev)
     unsorted = (*_cloud(rng, 3000, dev), *_cloud(rng, 7000, dev))
@@ -268,7 +263,6 @@ def test_nn_pruned_work_list_empty_and_full(dev, n_problems, n_targets):
         prep = tk.prepare_targets(bt, btm)
         want = tk.nn_1_pruned_batched_reference(bq, bqm, bt, btm, md)
         assert _bit_equal(tk.nn_1_pruned_batched(bq, bqm, prep, md), want), full
-        assert _bit_equal(tk.nn_1_pruned_batched_v1(bq, bqm, prep, md), want), full
         items = tk.pass_counts(bq, bqm, prep, md)[1]
         dense = n_problems * -(-bq.shape[1] // 32) * prep.tile_box.shape[-1]
         assert items == (dense if full else 0), (full, items, dense)
@@ -282,16 +276,13 @@ def _variant_twin(mode):
 
 @pytest.mark.cuda
 def test_nn_variant(dev):
-    """Every instance, in the new design (csrc/nn_variant.cu) and the first
-    (csrc/nn_pruned.cu), against its twin, bit for bit."""
+    """Every instance (csrc/nn_variant.cu) against its twin, bit for bit."""
     args = _sorted_scene(dev)
     for tq, tt, mode in sorted(tk.VARIANTS):
         for md in (2.0, None):
             want = _variant_twin(mode)(*args, max_distance=md)
             assert _bit_equal(tk.nn_1_pruned_variant(*args, md, tq, tt, mode),
                               want), (tq, tt, mode, md)
-            assert _bit_equal(tk.nn_1_pruned_variant_v1(*args, md, tq, tt, mode),
-                              want), (tq, tt, mode, md, "v1")
 
 
 def _variant_cases(dev):
@@ -328,8 +319,7 @@ def _variant_cases(dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("md", [None, 2.0])
 def test_nn_variant_cases(dev, md):
-    """The edge cases through every instance, new design and first, against
-    the twin bit for bit."""
+    """The edge cases through every instance against the twin bit for bit."""
     for name, args in _variant_cases(dev):
         twins = {mode: _variant_twin(mode)(*args, max_distance=md)
                  for mode in ("prod", "bf16")}
@@ -337,8 +327,6 @@ def test_nn_variant_cases(dev, md):
             want = twins["bf16" if mode == "bf16" else "prod"]
             assert _bit_equal(tk.nn_1_pruned_variant(*args, md, tq, tt, mode),
                               want), (name, tq, tt, mode, md)
-            assert _bit_equal(tk.nn_1_pruned_variant_v1(*args, md, tq, tt, mode),
-                              want), (name, tq, tt, mode, md, "v1")
         torch.cuda.synchronize()
 
 
@@ -436,14 +424,13 @@ def _fused_cases(dev):
 
 @pytest.mark.cuda
 def test_nn_fused(dev):
-    """new = first design = twin, bit for bit, at the splits the C side
-    picks and at fixed ones (1, 3, one a tile), and a second run; the prep
+    """kernels = twin, bit for bit, at the splits the C side picks and at
+    fixed ones (1, 3, one a tile), and a second run; the prep
     kernel's packed target against its twin."""
     for name, args in _fused_cases(dev):
         want = tk.nn_1_fused_reference(*args)
         got = tk.nn_1_fused(*args)
         assert _bit_equal(got, want), name
-        assert _bit_equal(tk.nn_1_fused_v1(*args), want), name
         assert _bit_equal(tk.nn_1_fused(*args), got), name
         for splits in (1, 3, 1 << 15):
             launch, idx, packed = tk._fused_launcher(*args, splits=splits)
@@ -489,11 +476,10 @@ def _segment_cases():
 
 
 def _hold_segment_sums(values, seg, init, n_out, order=None):
-    """new = walk = twin, bit for bit, and a second run of the new kernel."""
+    """kernel = twin, bit for bit, and a second run of the kernel."""
     want = voxel.segment_sum_sorted_reference(values, seg, init, n_out, order)
     got = voxel.segment_sum_sorted(values, seg, init, n_out, order)
     assert _bit_equal([got], [want])
-    assert _bit_equal([voxel.segment_sum_walk(values, seg, init, n_out, order)], [want])
     assert _bit_equal([voxel.segment_sum_sorted(values, seg, init, n_out, order)], [got])
 
 
@@ -525,16 +511,16 @@ def _labeled_batch(dev, tmp_path):
 
 
 def _hold_rasters(cloud, height_res, *cfgs):
-    """new = first design = twin, byte for byte, and a second run.  Returns
-    the rasters."""
+    """kernels = twin, byte for byte, and a second run.  Returns the
+    rasters."""
     want = bev.fused_multi_single_bev_reference(cloud, height_res, *cfgs)
     got = bev.fused_multi_single_bev(cloud, height_res, *cfgs)
-    for other in (got, bev.fused_multi_single_bev_v1(cloud, height_res, *cfgs),
-                  bev.fused_multi_single_bev(cloud, height_res, *cfgs)):
+    for other in (got, bev.fused_multi_single_bev(cloud, height_res, *cfgs)):
         assert all(a.shape == b.shape and torch.equal(a, b) for a, b in zip(other, want))
-    # a warp's equal cells combined: never more atomics than a pair a point
-    assert 0 <= bev.atomics_sent(cloud, height_res, *cfgs) \
-        <= bev.atomics_sent(cloud, height_res, *cfgs, v1=True)
+    # a warp's equal cells combined: never more atomics than a pair a valid
+    # non-ground point
+    live = int(((cloud.label != 0) & cloud.valid_mask()).sum())
+    assert 0 <= bev.atomics_sent(cloud, height_res, *cfgs) <= 2 * live
     return got
 
 

@@ -423,14 +423,13 @@ def test_cuda_knn_argument_checks_on_cpu_tensors():
     _raises_like(ValueError, "give target and target_mask",
                  lambda: cuda_knn.nn_1_pruned(q, qm))
     _raises_like(ValueError, "needs? CUDA tensors",
-                 lambda: cuda_knn._pruned_launcher(q, qm, t, tm, float("inf"), 256, 1024, "prod"),
                  lambda: cuda_knn._pass_launcher(q, qm, cuda_knn.prepare_target(t, tm),
                                                  float("inf")),
                  lambda: cuda_knn._variant_launcher(
                      q, qm, cuda_knn.prepare_variant_target(t, tm, 1024), t, float("inf"),
                      256, 1024, "prod"))
     _raises_like(ValueError, "needs CUDA tensors",
-                 lambda: cuda_knn._fused_inputs("nn_1_fused", q, qm, t, tm))
+                 lambda: cuda_knn._fused_launcher(q, qm, t, tm))
 
 
 def test_logging_helpers_print(capsys):

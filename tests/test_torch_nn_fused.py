@@ -176,9 +176,8 @@ def test_prep_twin_matches_plane_layout(nt):
 
 
 def test_fused_kernel_needs_cuda_tensors():
-    """No fallback: the launchers refuse CPU tensors; only ``nn_1_fused``
+    """No fallback: the launcher refuses CPU tensors; only ``nn_1_fused``
     takes the twin, and only because its tensors lie on the CPU."""
     q, qm, t, tm = (_t(a) for a in _clouds(5, 10, 20))
-    for fn in (tk.nn_1_fused_v1, tk._fused_launcher, tk._fused_v1_launcher):
-        with pytest.raises(ValueError, match="CUDA"):
-            fn(q, qm, t, tm)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk._fused_launcher(q, qm, t, tm)

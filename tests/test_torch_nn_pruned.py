@@ -477,18 +477,22 @@ def _stand_in(monkeypatch):
     return lib, _cuda.launch_counts
 
 
-@pytest.mark.parametrize("n_problems,nq,nt", [(1, 1, 1), (1, 1000, 3 * 1024 + 7),
-                                              (16, 4096, 5000), (32, 8192, 8192)])
-@pytest.mark.parametrize("v1", [False, True])
-def test_pass_scratch_holds_the_work_list(monkeypatch, n_problems, nq, nt, v1):
-    """``_pass_launcher`` sizes the pass's scratch from (P, Q, tiles): each
-    problem's warp boxes (4 words a query warp) and keys (a word a query);
-    the new design adds the list's count and a spare word, and room for
-    every (problem, query warp, tile) item — the dense grid's blocks."""
+@pytest.mark.parametrize("n_problems,nq,nt", [
+    (1, 1, 1), (1, 1000, 3 * 1024 + 7), (16, 4096, 5000), (32, 8192, 8192),
+    (2, 32 * 37 + 1, 3000),   # one query past a whole warp
+    (4, 2000, 4 * 1024),      # targets an exact multiple of the tile
+    (1, 32, 1000),            # one query warp, one tile
+    (128, 8192, 8192),        # the coarse stage at --pair-batch=64: two guesses a pair
+])
+def test_pass_scratch_holds_the_work_list(monkeypatch, n_problems, nq, nt):
+    """``_pass_launcher`` sizes the pass's scratch from (P, Q, tiles): the
+    list's count and a spare word, each problem's warp boxes (4 words a
+    query warp) and keys (a word a query), and room for every (problem,
+    query warp, tile) item."""
     _stand_in(monkeypatch)
     warps, tiles = -(-nq // 32), -(-nt // 1024)
-    want = n_problems * (4 * warps + nq) + (0 if v1 else 2 + n_problems * warps * tiles)
-    assert tk._pass_scratch_words(n_problems, nq, tiles, v1) == want
+    want = 2 + n_problems * (4 * warps + nq + warps * tiles)
+    assert tk._pass_scratch_words(n_problems, nq, tiles) == want
     made = []
     empty = torch.empty
 
@@ -499,23 +503,22 @@ def test_pass_scratch_holds_the_work_list(monkeypatch, n_problems, nq, nt, v1):
 
     monkeypatch.setattr(torch, "empty", recording_empty)
     tk._pass_launcher(*_pass_inputs(n_problems, nq, nt, batched=n_problems > 1),
-                      tk._thr2(1.0), v1=v1)
+                      tk._thr2(1.0))
     assert made.count(((want,), torch.int64)) == 1, made
 
 
 @pytest.mark.parametrize("batched", [False, True])
 def test_pass_launcher_entries_and_counts(monkeypatch, batched):
-    """The new pass, the counting instance and the first design's pass call
-    their own C entries, each counted under its own name once a launch; the
-    counting instance gets the counter, the others none."""
+    """The pass and its counting instance call the C entry of their kind of
+    target, each counted under its own name once a launch; the counting
+    instance gets the counter, the pass none."""
     lib, counts = _stand_in(monkeypatch)
     q, qm, prep = _pass_inputs(3 if batched else 1, 100, 2100, batched)
     new_entry = "pctpu_nn_pruned_batched" if batched else "pctpu_nn_pruned"
     counter = torch.zeros((2,), dtype=torch.int64)
     for kw, entry, name in (
             ({}, new_entry, "nn_pruned_batched" if batched else "nn_pruned"),
-            ({"counter": counter}, new_entry, "nn_pruned_count"),
-            ({"v1": True}, "pctpu_nn_pruned_batched_v1", "nn_pruned_batched_v1")):
+            ({"counter": counter}, new_entry, "nn_pruned_count")):
         before = dict(counts)
         launch, idx, d2 = tk._pass_launcher(q, qm, prep, tk._thr2(2.0), **kw)
         assert not lib.calls and counts == before  # nothing launches before launch()
@@ -526,23 +529,21 @@ def test_pass_launcher_entries_and_counts(monkeypatch, batched):
         assert args[0] == q.data_ptr() and args[-1] == 0  # queries first, the stream last
         assert idx.data_ptr() in args and d2.data_ptr() in args
         assert args[args.index(d2.data_ptr()) + 1:-1] == (
-            () if kw.get("v1") else (counter.data_ptr() if kw.get("counter") is not None
-                                     else None,))
+            counter.data_ptr() if kw.get("counter") is not None else None,)
         assert {k: counts[k] - before[k] for k in counts if counts[k] != before[k]} == {name: 2}
         lib.calls.clear()
-    with pytest.raises(ValueError, match="no counting instance"):
-        tk._pass_launcher(q, qm, prep, tk._thr2(2.0), counter=counter, v1=True)
 
 
 @pytest.mark.parametrize("batched", [False, True])
-def test_nn_1_pruned_batched_v1_needs_cuda(batched):
-    """The first design's pass has no CPU mode: CPU tensors raise, and
-    nothing is counted."""
+def test_pass_launcher_needs_cuda(batched):
+    """The kernels' pass has no CPU mode: ``_pass_launcher`` on CPU tensors
+    raises before it allocates or launches anything, and nothing is
+    counted."""
     from pctpu_torch.ops import _cuda
 
     before = dict(_cuda.launch_counts)
     with pytest.raises(ValueError, match="need CUDA tensors"):
-        tk.nn_1_pruned_batched_v1(*_pass_inputs(2 if batched else 1, 64, 1500, batched))
+        tk._pass_launcher(*_pass_inputs(2 if batched else 1, 64, 1500, batched), tk._thr2(1.0))
     assert _cuda.launch_counts == before
 
 

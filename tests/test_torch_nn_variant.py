@@ -3,9 +3,8 @@
 against pctpu's production Pallas kernel, and the new design's prep
 (``cuda_knn.prepare_variant_target``) against pctpu's box planes.
 
-On the CPU a variant runs its mode's twin, which does not depend on the
-tile shape, in the new design (``nn_1_pruned_variant``) and the first
-(``nn_1_pruned_variant_v1``) alike.  Each is held against ``pallas_nn_1_pruned(..., kernel="loop",
+On the CPU a variant (``nn_1_pruned_variant``) runs its mode's twin, which
+does not depend on the tile shape.  Each is held against ``pallas_nn_1_pruned(..., kernel="loop",
 tq=256, tt=1024, interpret=True)`` on the script's CPU-check scene (seed 5,
 1,800 points in a 2,048 bucket, targets = queries + N(0, 0.4 m)).  The exact
 modes pick the same winner as pctpu on every query whose best and
@@ -138,17 +137,15 @@ def test_every_instance_matches_pallas(variant, md):
 
 @pytest.mark.parametrize("md", [1.0, None])
 @pytest.mark.parametrize("variant", VARIANTS, ids=lambda v: "-".join(map(str, v)))
-def test_v1_is_the_same_twin_on_cpu(variant, md):
-    """The first design's wrapper runs the same twin on CPU tensors as the
-    new design's, bit for bit."""
+def test_cpu_runs_the_modes_twin(variant, md):
+    """On CPU tensors the wrapper runs its mode's twin
+    (``nn_1_pruned_reference``, or ``nn_1_pruned_bf16_reference`` for
+    ``bf16``), bit for bit: the identity the card tests hold the kernel to."""
     q, qm, t, tm = map(_t, _scene())
-    a = tk.nn_1_pruned_variant(q, qm, t, tm, md, *variant)
-    b = tk.nn_1_pruned_variant_v1(q, qm, t, tm, md, *variant)
+    got = tk.nn_1_pruned_variant(q, qm, t, tm, md, *variant)
     twin = tk.nn_1_pruned_bf16_reference if variant[2] == "bf16" else tk.nn_1_pruned_reference
-    c = twin(q, qm, t, tm, md)
-    for x, y, z in zip(a, b, c):
+    for x, y in zip(got, twin(q, qm, t, tm, md)):
         assert torch.equal(x.view(torch.int32), y.view(torch.int32))
-        assert torch.equal(x.view(torch.int32), z.view(torch.int32))
 
 
 def _masked_tiles_scene():

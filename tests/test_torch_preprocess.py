@@ -414,10 +414,10 @@ def test_raster_kernels_need_cuda_tensors():
     from pctpu_torch.config import MultiBevConfig, SingleBevConfig
 
     cloud = port(jcloud.make_cloud(np.zeros((4, 3), np.float32)))
-    for fn in (bev.fused_multi_single_bev_v1, bev._raster_launcher, bev.atomics_sent):
+    for fn in (bev._raster_launcher, bev.atomics_sent):
         with pytest.raises(ValueError, match="CUDA"):
             fn(cloud, 0.5)
-    for fn in (bev.fused_multi_single_bev, bev.fused_multi_single_bev_v1):
+    for fn in (bev.fused_multi_single_bev, bev._raster_launcher):
         with pytest.raises(ValueError, match="geometry"):
             fn(cloud, 0.5, MultiBevConfig(max_range=50.0), SingleBevConfig())
 

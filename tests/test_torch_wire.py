@@ -206,8 +206,8 @@ def test_writers_get_the_on_disk_dtypes(pipeline, tmp_path, monkeypatch):
 
 
 def test_wire_ab_trees_equal_on_the_cpu(capsys):
-    """``experiments.wire_ab`` on the CPU at a short drive: the three wires
-    (narrow pinned, narrow pageable, wide) write byte-equal trees, and the
+    """``experiments.wire_ab`` on the CPU at a short drive: the two wires
+    (pinned, pageable) write byte-equal trees, and the
     summary carries each variant's medians and the writers-alone times."""
     import json
 
@@ -216,9 +216,9 @@ def test_wire_ab_trees_equal_on_the_cpu(capsys):
     assert wire_ab.main(["--device=cpu", "--rounds=1", "--clouds=3"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     runs, summary = [json.loads(x) for x in lines[:-1]], json.loads(lines[-1])
-    assert [r["variant"] for r in runs] == list("PUWWUP")
+    assert [r["variant"] for r in runs] == list("PUUP")
     assert summary["trees_equal"] and summary["clouds"] == 6
-    assert set(summary["medians"]) == {"P", "U", "W"}
+    assert set(summary["medians"]) == {"P", "U"}
     assert all(m["clouds_per_s"] > 0 for m in summary["medians"].values())
     assert set(summary["writers_alone_ms_per_cloud"]) == {"pinned", "pageable"}
     assert summary["device"] == {"type": "cpu"}
